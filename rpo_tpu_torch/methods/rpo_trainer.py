@@ -1,0 +1,56 @@
+"""RPO trainer, evaluation side.
+
+Port of the eval half of ``rpo_tpu/methods/rpo_trainer.py``: the build
+(task, prompts, frozen bundle with the text K/V cache), the per-task text
+features and the eval step on uint8 images.  Training is not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from . import rpo as core
+from .base_trainer import CLIPMethodTrainer
+
+
+class RPO(CLIPMethodTrainer):
+    model_name = "prompt_learner"
+
+    def __init__(
+        self,
+        classnames: Sequence[str],
+        prompt_template: str = "a photo of a _.",
+        K: int = 24,
+        **kwargs,
+    ):
+        """``classnames`` and ``prompt_template`` ('_' is the classname
+        slot) make the task; ``kwargs`` go to ``CLIPMethodTrainer``
+        (backbone, prec, seed, device, clip_params)."""
+        self.classnames = list(classnames)
+        self.prompt_template = prompt_template
+        self.K = int(K)
+        super().__init__(**kwargs)
+
+    def build_method(self) -> None:
+        if not self.clip_cfg.is_vit:
+            raise ValueError("RPO requires a ViT backbone")
+        self.task = core.make_task(
+            self.clip_cfg, self.classnames, self.prompt_template, self.K
+        )
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.params = core.init_prompts(gen, self.clip_params, self.clip_cfg, self.K)
+        self._frozen = core.make_frozen(self.clip_params, self.task)
+
+        task = self.task
+        normalize = self._normalize
+
+        def text_features(params, frozen):
+            return core.encode_text_with_prompts(params, frozen, task)
+
+        def eval_step(params, frozen, text_f, images_u8, rect_attn):
+            return core.rpo_logits(
+                params, frozen, task, normalize(images_u8), text_f=text_f, rect_attn=rect_attn
+            )
+
+        self._install_steps(text_features, eval_step)

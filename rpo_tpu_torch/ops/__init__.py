@@ -1,0 +1,2 @@
+"""Attention and the hand-written CUDA kernels (``csrc/``), each beside its
+plain PyTorch version."""

@@ -1,0 +1,174 @@
+"""Bias-free rectangular attention: the CUDA kernel and its plain version.
+
+Port of ``pallas_rect_attention`` and ``pallas_rect_attention_paired``
+(``rpo_tpu/ops/pallas_attention.py``).  ``rect_attention(q, k, v)`` takes
+q (B, H, Lq, D) against k, v (B, H, Lk, D):
+
+- on a CUDA tensor it launches ``csrc/rect_attention.cu`` or raises;
+- on a CPU tensor it runs ``rect_attention_reference``, the same math in
+  plain PyTorch.
+
+There is no fallback from the kernel to the plain version.  ``launches``
+counts the kernel launches, so a run can show that its path went through
+the kernel.  The backward is a plain-PyTorch recompute, as in the JAX
+package, which has no backward kernel either.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+launches = 0  # kernel launches since the count was last set to 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+_MAX_GRID_YZ = 65535
+_ERR_SHARED_MEMORY = -3  # kErrSharedMemory in csrc/rect_attention.cu
+
+
+def rect_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The kernel's math in plain PyTorch (``_softmax_attend``, bias None):
+    f32 scores times D^-1/2, f32 softmax normalised before the cast,
+    probabilities rounded to v's dtype, f32-accumulated product with v,
+    output in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    w = e / e.sum(dim=-1, keepdim=True)
+    return torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
+def _attention_bwd_math(q, k, v, g):
+    """Softmax-recompute backward (``_attention_bwd_math`` with bias None)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    w = torch.softmax(s, dim=-1)
+    w_v = w.to(v.dtype)
+    dv = torch.matmul(w_v.transpose(-1, -2), g)
+    dw = torch.matmul(g, v.transpose(-1, -2)).float()
+    ds = (w * (dw - (dw * w).sum(dim=-1, keepdim=True))).to(q.dtype)
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return dq, dk, dv
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("rect_attention")
+    fn = lib.rect_attention_forward
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 4
+            + [ctypes.c_int] * 5
+            + [ctypes.c_longlong] * 12
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        lib.rect_attention_error_string.argtypes = [ctypes.c_int]
+        lib.rect_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be (B, H, L, D), got shape {tuple(t.shape)}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"rect_attention takes float32 or bfloat16, got {q.dtype}")
+    B, H, Lq, D = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
+        raise ValueError(
+            f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match"
+        )
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head dim {D} is not one of {_HEAD_DIMS}")
+    if min(B, H, Lq, k.shape[2]) < 1 or max(B, H) > _MAX_GRID_YZ:
+        raise ValueError(f"unsupported shape q {tuple(q.shape)}, k {tuple(k.shape)}")
+    es = q.element_size()
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        # rows are read as 16-byte vectors straight from the (possibly
+        # strided) tensor: the last dim must be contiguous and every row
+        # 16-byte aligned
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous in its last dim")
+        if t.data_ptr() % 16 or any((t.stride(i) * es) % 16 for i in range(3)):
+            raise ValueError(f"{name}'s rows are not 16-byte aligned")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    global launches
+    _check(q, k, v)
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    lib = _lib()
+    # written as (B, Lq, H, D) so that the head merge of the output
+    # projection is a view
+    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.rect_attention_forward(
+        _DTYPES[q.dtype], q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        B, H, Lq, Lk, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        D ** -0.5, stream,
+    )
+    if rc == _ERR_SHARED_MEMORY:
+        raise ValueError(f"Lk={Lk} at D={D} in {q.dtype} does not fit one block's shared memory")
+    if rc != 0:
+        msg = lib.rect_attention_error_string(rc).decode()
+        raise RuntimeError(f"rect_attention kernel launch failed ({rc}): {msg}")
+    launches += 1
+    return out
+
+
+class _RectAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.is_cuda:
+            return _launch(q, k, v)
+        if q.device.type != "cpu":
+            raise ValueError(f"rect_attention runs on CUDA or the CPU, not {q.device}")
+        return rect_attention_reference(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        return _attention_bwd_math(q, k, v, g)
+
+
+def rect_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Bias-free attention of q (B, H, Lq, D) over k, v (B, H, Lk, D):
+    the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    return _RectAttention.apply(q, k, v)
+
+
+def unpair_heads(x: torch.Tensor, half: int) -> torch.Tensor:
+    """(B, H/2, L, 2*half) -> (B, H, L, half): real head 2i is lanes
+    [:half] of pair-head i, head 2i+1 lanes [half:]."""
+    B, H2, L, D2 = x.shape
+    if D2 != 2 * half:
+        raise ValueError(f"paired head width {D2} is not 2 * {half}")
+    return x.reshape(B, H2, L, 2, half).permute(0, 1, 3, 2, 4).reshape(B, 2 * H2, L, half)
+
+
+def pair_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, half) -> (B, H/2, L, 2*half), the inverse of unpair_heads."""
+    B, H, L, half = x.shape
+    return x.reshape(B, H // 2, 2, L, half).permute(0, 1, 3, 2, 4).reshape(B, H // 2, L, 2 * half)
+
+
+def rect_attention_paired(q2, k2, v2, half: int = 64) -> torch.Tensor:
+    """``pallas_rect_attention_paired``'s signature over ``rect_attention``:
+    unpacks the paired-head layout, attends per real head, packs back.
+    The port's own path never pairs heads (pairing fills the TPU's 128
+    lanes); this adapter exists to hold the port against that kernel."""
+    return pair_heads(rect_attention(*(unpair_heads(t, half) for t in (q2, k2, v2))))
