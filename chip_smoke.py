@@ -6,18 +6,30 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases, one line each (any failure exits non-zero):
-  1. device   card name, nvidia-smi name and power limit, TF32 off;
+  1. device   card name, nvidia-smi name and power limit; TF32 and
+              cuBLAS's reduced-precision bf16 reduction off;
   2. build    every CUDA source under rpo_tpu_torch/ops/csrc with nvcc;
   3. kernels  each kernel against its plain PyTorch version on the card
-              at the main path's shapes, with its time, the plain
+              at the main paths' shapes, with its time, the plain
               version's, one PyTorch library call's and the card's bound;
-  4. slice    RPO evaluation of ViT-B/16 in bf16 (K=24, 51 classes) on
+  4. RPO      RPO evaluation of ViT-B/16 in bf16 (K=24, 51 classes) on
               three batches of 100 seeded uint8 images, through the
-              trainer's entry points; launches counted; logits checked
+              trainer's entry points; launches counted (12 masked in the
+              set-up's text K/V, 12 rect per batch); logits checked
               against the same batches on the plain attention; one more
-              batch under torch.profiler for where the time goes.
+              batch under torch.profiler for where the time goes;
+  5. CoOp     CoOp evaluation (N_CTX 16, end, no CSC) on the same
+              backbone and batches: 12 masked launches for the text
+              features, 12 rect per batch; logits against the plain run;
+  6. zero-shot  ZeroshotCLIP (Caltech101's template) as in phase 5, and
+              ZeroshotCLIP2's 8-template text features (96 masked
+              launches) against their plain version;
+  7. flag     CoOp eval images/s with cuBLAS's reduced-precision bf16
+              reduction off and on, in turns.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
-line {"ok": true, "device": {...}}.  Imports nothing of JAX or rpo_tpu.
+line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
+from seed 1 and shared by the three methods.  Imports nothing of JAX or
+rpo_tpu.
 """
 from __future__ import annotations
 
@@ -41,18 +53,30 @@ PEAKS = [
     ("H100", 3.35e12, 989e12),
 ]
 K = 24
+N_CTX = 16
 N_CLS = 51
 EVAL_BATCH = 100
 N_BATCHES = 3
+NEG_INF = -1e9
 BF16_TOL = 2e-2  # inputs N(0, 1): about 2 bf16 ulps of outputs below 2
 F32_TOL = 1e-5
 # Slice logits, kernel vs plain attention in every layer: the two differ
 # by bf16 rounding flips (summation order) that compound over 12 layers;
-# logits are exp(logit_scale) = 14.3 x a cosine averaged over K pairs, so
-# 5e-2 is a cosine difference of 0.0035.  Argmax may flip only where two
-# classes' logits are that close.
+# logits are exp(logit_scale) = 14.3 x a cosine (averaged over K pairs
+# for RPO), so 5e-2 is a cosine difference of 0.0035.  Argmax may flip
+# only where two classes' logits are that close.
 SLICE_ATOL = 5e-2
 SLICE_ARGMAX_AGREE = 0.98
+# CoOp and zero-shot logits are one cosine each, not a mean over K pairs,
+# so the same per-layer rounding flips move them about sqrt(K) = 5x more
+# than RPO's (max 1.5e-2 against 2.8e-3 on the H100), while random
+# weights leave a median top-2 margin of 0.015: 4 of 300 argmax flipped
+# for CoOp on the card.  A kernel fault would break SLICE_ATOL first.
+SINGLE_PAIR_ARGMAX_AGREE = 0.97
+# Zero-shot text features are unit vectors of 512 components of about
+# 0.04 each; kernel vs plain attention over 12 bf16 layers moves a
+# component by rounding flips only, so 1e-2 is a quarter of one.
+UNIT_ATOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -75,9 +99,15 @@ def time_ms(fn, n: int, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(n_bytes: float, n_flops: float, bw: float, peak: float):
+    """(bound ms, "bytes" or "operations") for the card's peaks."""
+    bytes_ms, flops_ms = n_bytes / bw * 1e3, n_flops / peak * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
 def path_layout_qkv(gen, B, H, Lq, Lk, D, dtype):
-    """q, k, v as the eval tower hands them to the kernel: head views of
-    the projection outputs (B, L, H*D) and (B, Lk, 2*H*D)."""
+    """q, k, v as the rect eval tower hands them to the kernel: head views
+    of the projection outputs (B, L, H*D) and (B, Lk, 2*H*D)."""
     q = torch.randn(B, Lq, H * D, generator=gen, device="cuda").to(dtype)
     kv = torch.randn(B, Lk, 2 * H * D, generator=gen, device="cuda").to(dtype)
     q = q.view(B, Lq, H, D).permute(0, 2, 1, 3)
@@ -85,16 +115,49 @@ def path_layout_qkv(gen, B, H, Lq, Lk, D, dtype):
     return q, kv[:, :H], kv[:, H:]
 
 
-def profile_eval_step(rpo, images, smi: str) -> None:
+def fused_qkv(gen, B, H, L, D, dtype):
+    """q, k, v as a self-attention tower hands them to the kernel: head
+    views of the fused QKV projection output (B, L, 3*H*D)."""
+    qkv = torch.randn(B, L, 3 * H * D, generator=gen, device="cuda").to(dtype)
+    qkv = qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
+    return qkv[0], qkv[1], qkv[2]
+
+
+def mask(kind: str, B: int, L: int) -> torch.Tensor:
+    """The masked kernel's f32 biases, built with numpy: the shared causal
+    mask of the text towers, RPO's per-class text mask (causal, and every
+    column >= the class's prompt length), RPO's shared visual mask (the
+    last K columns), and a per-batch causal mask with one row fully
+    masked."""
+    i = np.arange(L)
+    causal = np.where(i[None, :] > i[:, None], NEG_INF, 0.0).astype(np.float32)
+    if kind == "causal":
+        m = causal[None, None]
+    elif kind == "text":
+        lens = 4 + np.arange(B) % (L - K - 4)  # prompt lengths 4 .. L-K-1
+        m = np.where((i[None, None, :] >= lens[:, None, None]) | (causal[None] < 0), NEG_INF, 0.0)
+        m = m.astype(np.float32)[:, None]
+    elif kind == "visual":
+        m = np.zeros((1, 1, L, L), np.float32)
+        m[..., L - K:] = NEG_INF
+    elif kind == "full row":
+        m = np.tile(causal, (B, 1, 1, 1)).reshape(B, 1, L, L)
+        m[1, 0, 4, :] = NEG_INF
+    else:
+        raise KeyError(kind)
+    return torch.from_numpy(m).cuda()
+
+
+def profile_eval_step(step, images, smi: str, label: str) -> None:
     """One more eval batch under torch.profiler: device time by kernel
     group and the device's idle share of the batch's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    rpo.eval_step(images)  # warm
+    step(images)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        rpo.eval_step(images)
+        step(images)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     groups = {}
@@ -103,7 +166,8 @@ def profile_eval_step(rpo, images, smi: str) -> None:
             continue
         us = evt.self_device_time_total
         n = evt.key.lower()
-        group = ("rect_attention kernel" if "rect_attention" in n
+        group = ("masked_attention kernel" if "attention_kernel" in n and "true" in n
+                 else "rect_attention kernel" if "attention_kernel" in n
                  else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90"))
                  else "layer_norm" if "layer_norm" in n
                  else "softmax/reduce" if any(w in n for w in ("softmax", "reduce"))
@@ -113,12 +177,60 @@ def profile_eval_step(rpo, images, smi: str) -> None:
         groups[group] = groups.get(group, 0.0) + us
     busy = sum(groups.values())
     if busy == 0:
-        print("profile: the profiler saw no device time (not measured)")
+        print(f"profile {label}: the profiler saw no device time (not measured)")
         return
     parts = ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
                       for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
-    print(f"profile eval batch on {smi}: wall {wall_us / 1e3:.2f} ms, device busy "
+    print(f"profile {label} eval batch on {smi}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}; {parts}", flush=True)
+
+
+def run_batches(step, batches):
+    """Logits and host seconds of each batch, synchronised."""
+    batch_s, logits = [], []
+    for images in batches:
+        t = time.perf_counter()
+        out = step(images)
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t)
+        logits.append(out)
+    return logits, batch_s
+
+
+def check_logits(label: str, logits, plain, min_agree: float = SLICE_ARGMAX_AGREE) -> None:
+    """Logits finite, (100, 51) each, and close to the plain run's."""
+    for out in logits:
+        if tuple(out.shape) != (EVAL_BATCH, N_CLS) or not bool(torch.isfinite(out).all()):
+            fail(f"{label} logits have shape {tuple(out.shape)} or are not finite")
+    mine, plain = torch.cat(logits), torch.cat(plain)
+    diff = (mine - plain).abs().max().item()
+    flips = int((mine.argmax(-1) != plain.argmax(-1)).sum())
+    agree = 1.0 - flips / mine.shape[0]
+    top2 = plain.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).median().item()
+    ok = diff <= SLICE_ATOL and agree >= min_agree
+    print(f"{label}: logits {tuple(logits[0].shape)} x {len(logits)} finite; vs plain attention "
+          f"max_abs_err {diff:.3e} (tol {SLICE_ATOL}), argmax agree {agree:.4f} ({flips} of "
+          f"{mine.shape[0]} flip; >= {min_agree}) {'ok' if ok else 'FAIL'}; logit range "
+          f"[{mine.min().item():.3f}, {mine.max().item():.3f}], median top-2 margin {margin:.4f}",
+          flush=True)
+    if not ok:
+        fail(f"{label} logits disagree with the plain-attention run")
+
+
+def check_launches(label: str, module, want: int) -> int:
+    if module.launches != want:
+        fail(f"{label}: {module.__name__.rsplit('.', 1)[-1]} launched {module.launches} times, "
+             f"expected {want}")
+    return module.launches
+
+
+def report_rate(label: str, setup_s: float, batch_s, smi: str) -> float:
+    med = statistics.median(batch_s)
+    print(f"{label} eval on {smi}: setup {setup_s:.2f} s; batch seconds "
+          f"{[round(s, 4) for s in batch_s]}; {EVAL_BATCH / med:.1f} images/s at the median batch, "
+          f"{EVAL_BATCH * len(batch_s) / sum(batch_s):.1f} over all {len(batch_s)}", flush=True)
+    return EVAL_BATCH / med
 
 
 def main() -> int:
@@ -126,8 +238,12 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rpo_tpu_torch.methods import coop as coop_mod
+    from rpo_tpu_torch.methods import zsclip
     from rpo_tpu_torch.methods.rpo_trainer import RPO
+    from rpo_tpu_torch.models.clip.model import ARCHS, cast_params, init_clip
     from rpo_tpu_torch.ops import _build
+    from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
 
     # ---- 1. device --------------------------------------------------------
@@ -138,11 +254,13 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     bw, peak = next(((b, p) for frag, b, p in PEAKS if frag in name), PEAKS[-1][1:])
     print(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn={torch.backends.cudnn.allow_tf32} | peaks {bw / 1e12} TB/s, "
-          f"{peak / 1e12} TFLOP/s bf16", flush=True)
+          f"cudnn={torch.backends.cudnn.allow_tf32} | allow_bf16_reduced_precision_reduction="
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction} | peaks "
+          f"{bw / 1e12} TB/s, {peak / 1e12} TFLOP/s bf16", flush=True)
 
     # ---- 2. build ---------------------------------------------------------
     secs, logs = _build.build_all()
@@ -157,6 +275,7 @@ def main() -> int:
     checks = [
         ("eval layer, path layout", (100, 12, 221, 197, 64), torch.bfloat16, BF16_TOL, False),
         ("eval layer, paired adapter", (100, 6, 221, 197, 128), torch.bfloat16, BF16_TOL, True),
+        ("CoOp/zero-shot eval layer", (100, 12, 197, 197, 64), torch.bfloat16, BF16_TOL, False),
         ("ragged tiny", (3, 2, 9, 5, 32), torch.float32, F32_TOL, False),
         ("TINY tower", (3, 1, 9, 5, 64), torch.bfloat16, BF16_TOL, False),
         ("eval layer f32", (2, 12, 221, 197, 64), torch.float32, F32_TOL, False),
@@ -164,7 +283,7 @@ def main() -> int:
         ("head dim 32", (2, 3, 70, 130, 32), torch.bfloat16, BF16_TOL, False),
         ("Lk over 256: two score passes", (2, 2, 33, 300, 64), torch.bfloat16, BF16_TOL, False),
     ]
-    prod_err = None
+    rect_err = None
     for label, (B, H, Lq, Lk, D), dtype, tol, paired in checks:
         if paired:
             q, k, v = (torch.randn(B, H, n, D, generator=gen, device="cuda").to(dtype)
@@ -183,8 +302,8 @@ def main() -> int:
               f"max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"rect_attention {label}: max abs err {err} > {tol}")
-        if prod_err is None:
-            prod_err = err
+        if rect_err is None:
+            rect_err = err
     try:
         z = torch.zeros(1, 1, 197, 128, device="cuda")
         ra.rect_attention(z[:, :, :8], z, z)
@@ -192,68 +311,212 @@ def main() -> int:
     except ValueError as exc:
         print(f"kernel rect_attention refuses f32 (1,1,8,197,128): {exc}")
 
+    masked_checks = [
+        ("RPO set-up text K/V, shared causal", (51, 8, 77, 64), "causal", torch.bfloat16, BF16_TOL),
+        ("CoOp text, shared causal", (51, 8, 24, 64), "causal", torch.bfloat16, BF16_TOL),
+        ("zero-shot text, shared causal", (51, 8, 16, 64), "causal", torch.bfloat16, BF16_TOL),
+        ("RPO masked text form, per-class mask", (51, 8, 77, 64), "text", torch.bfloat16, BF16_TOL),
+        ("RPO masked vision form, shared visual mask", (4, 12, 221, 64), "visual", torch.bfloat16,
+         BF16_TOL),
+        ("ragged per-batch, one row fully masked", (3, 2, 10, 32), "full row", torch.float32,
+         F32_TOL),
+        ("head dim 128", (2, 4, 77, 128), "causal", torch.bfloat16, BF16_TOL),
+        ("head dim 32", (2, 3, 70, 32), "text", torch.bfloat16, BF16_TOL),
+    ]
+    masked_err = None
+    for label, (B, H, L, D), kind, dtype, tol in masked_checks:
+        q, k, v = fused_qkv(gen, B, H, L, D, dtype)
+        bias = mask(kind, B, L)
+        out = ma.masked_attention(q, k, v, bias)
+        ref = ma.masked_attention_reference(q, k, v, bias)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = err <= tol and bool(torch.isfinite(out).all())
+        if bias.shape[0] == 1:  # a shared bias is read in place: as a per-batch copy
+            ok = ok and torch.equal(out, ma.masked_attention(q, k, v, bias.expand(B, 1, L, L)
+                                                             .contiguous()))
+        print(f"kernel masked_attention {label} {(B, H, L, L, D)} bias {tuple(bias.shape)} "
+              f"{str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"masked_attention {label}: max abs err {err} > {tol} or shared != per-batch")
+        if masked_err is None:
+            masked_err = err
+    try:
+        z = torch.zeros(2, 2, 77, 64, device="cuda", dtype=torch.bfloat16)
+        ma.masked_attention(z, z, z, torch.zeros(2, 1, 77, 1, device="cuda"))
+        fail("masked_attention took a column-broadcast bias")
+    except ValueError as exc:
+        print(f"kernel masked_attention refuses a (2,1,77,1) bias: {exc}")
+
+    # timing: each kernel at its main-path shape, beside plain, library, bound
     B, H, Lq, Lk, D = 100, 12, 221, 197, 64
     q, k, v = path_layout_qkv(gen, B, H, Lq, Lk, D, torch.bfloat16)
-    ms = time_ms(lambda: ra.rect_attention(q, k, v), 30)
-    plain_ms = time_ms(lambda: ra.rect_attention_reference(q, k, v), 10)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 30)
-    n_bytes = 2 * B * H * (Lq + Lk + Lk + Lq) * D
-    n_flops = 4 * B * H * Lq * Lk * D
-    bytes_ms, flops_ms = n_bytes / bw * 1e3, n_flops / peak * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-    print(f"time rect_attention (100,12,221,197,64) bf16 on {smi}: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, library SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"by {bound_by} ({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)", flush=True)
+    rect_ms = time_ms(lambda: ra.rect_attention(q, k, v), 30)
+    rect_plain_ms = time_ms(lambda: ra.rect_attention_reference(q, k, v), 10)
+    rect_library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 30)
+    n_bytes, n_flops = 2 * B * H * (Lq + Lk + Lk + Lq) * D, 4 * B * H * Lq * Lk * D
+    rect_bound_ms, rect_bound_by = bound(n_bytes, n_flops, bw, peak)
+    print(f"time rect_attention (100,12,221,197,64) bf16 on {smi}: kernel {rect_ms:.4f} ms, "
+          f"plain {rect_plain_ms:.4f} ms, library SDPA {rect_library_ms:.4f} ms, bound "
+          f"{rect_bound_ms:.4f} ms by {rect_bound_by} ({n_bytes / 1e6:.1f} MB, "
+          f"{n_flops / 1e9:.2f} GFLOP)", flush=True)
+    q, k, v = fused_qkv(gen, 100, 12, 197, 64, torch.bfloat16)
+    sq_ms = time_ms(lambda: ra.rect_attention(q, k, v), 30)
+    sq_plain_ms = time_ms(lambda: ra.rect_attention_reference(q, k, v), 10)
+    sq_library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 30)
+    n_bytes, n_flops = 2 * 100 * 12 * 197 * 4 * 64, 4 * 100 * 12 * 197 * 197 * 64
+    sq_bound_ms, sq_bound_by = bound(n_bytes, n_flops, bw, peak)
+    print(f"time rect_attention (100,12,197,197,64) bf16 on {smi}: kernel {sq_ms:.4f} ms, "
+          f"plain {sq_plain_ms:.4f} ms, library SDPA {sq_library_ms:.4f} ms, bound "
+          f"{sq_bound_ms:.4f} ms by {sq_bound_by} ({n_bytes / 1e6:.1f} MB, "
+          f"{n_flops / 1e9:.2f} GFLOP)", flush=True)
+    B, H, L, D = 51, 8, 77, 64
+    q, k, v = fused_qkv(gen, B, H, L, D, torch.bfloat16)
+    bias = mask("causal", B, L)
+    bias_q = bias.to(q.dtype)  # SDPA takes a float mask in q's dtype
+    masked_ms = time_ms(lambda: ma.masked_attention(q, k, v, bias), 30)
+    masked_plain_ms = time_ms(lambda: ma.masked_attention_reference(q, k, v, bias), 10)
+    masked_library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias_q),
+                                30)
+    n_bytes, n_flops = 2 * B * H * L * 4 * D + 4 * L * L, 4 * B * H * L * L * D
+    masked_bound_ms, masked_bound_by = bound(n_bytes, n_flops, bw, peak)
+    print(f"time masked_attention (51,8,77,77,64) bf16 shared causal on {smi}: kernel "
+          f"{masked_ms:.4f} ms, plain {masked_plain_ms:.4f} ms, library SDPA {masked_library_ms:.4f} "
+          f"ms, bound {masked_bound_ms:.5f} ms by {masked_bound_by} ({n_bytes / 1e6:.2f} MB, "
+          f"{n_flops / 1e9:.3f} GFLOP)", flush=True)
 
-    # ---- 4. the slice: RPO ViT-B/16 bf16 eval through the trainer ----------
+    # ---- the shared backbone and data --------------------------------------
     classnames = [f"object category {i}" for i in range(N_CLS)]
     rng = np.random.RandomState(2)
     batches = [rng.randint(0, 256, (EVAL_BATCH, 224, 224, 3)).astype(np.uint8)
                for _ in range(N_BATCHES)]
-    ra.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    rpo = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1)
+    clip = cast_params(init_clip(torch.Generator(device="cuda").manual_seed(1), ARCHS["ViT-B/16"]),
+                       torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"backbone: ViT-B/16 drawn from seed 1 in bf16 in {time.perf_counter() - t0:.2f} s, "
+          "shared by phases 4-6", flush=True)
+    n_layers = ARCHS["ViT-B/16"].vision_layers
+    text_layers = ARCHS["ViT-B/16"].text_layers
+    rect_launches, masked_launches = {}, {}
+
+    # ---- 4. RPO ViT-B/16 bf16 eval through the trainer ----------------------
+    ra.launches = ma.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rpo = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1,
+              clip_params=clip)
     rpo.text_features()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
-    batch_s, logits = [], []
-    for images in batches:
-        t = time.perf_counter()
-        out = rpo.eval_step(images)
-        torch.cuda.synchronize()
-        batch_s.append(time.perf_counter() - t)
-        logits.append(out)
-    launches = ra.launches
-    n_layers = rpo.clip_cfg.vision_layers
-    for out in logits:
-        if tuple(out.shape) != (EVAL_BATCH, N_CLS) or not bool(torch.isfinite(out).all()):
-            fail(f"slice logits have shape {tuple(out.shape)} or are not finite")
-    if launches != n_layers * N_BATCHES:
-        fail(f"rect_attention launched {launches} times, expected {n_layers} x {N_BATCHES}")
+    masked_launches["RPO set-up"] = check_launches("RPO set-up", ma, text_layers)
+    logits, batch_s = run_batches(rpo.eval_step, batches)
+    rect_launches["RPO eval"] = check_launches("RPO eval", ra, n_layers * N_BATCHES)
+    check_launches("RPO eval", ma, text_layers)
+    print(f"RPO launches: masked {ma.launches} = {text_layers} (set-up text K/V), rect "
+          f"{ra.launches} = {n_layers} x {N_BATCHES}", flush=True)
     plain = [rpo.eval_step(images, rect_attn=ra.rect_attention_reference) for images in batches]
-    mine, plain = torch.cat(logits), torch.cat(plain)
-    diff = (mine - plain).abs().max().item()
-    flips = int((mine.argmax(-1) != plain.argmax(-1)).sum())
-    agree = 1.0 - flips / mine.shape[0]
-    top2 = plain.topk(2, dim=-1).values
-    margin = (top2[:, 0] - top2[:, 1]).median().item()
-    ok = diff <= SLICE_ATOL and agree >= SLICE_ARGMAX_AGREE
-    print(f"slice RPO ViT-B/16 bf16 K={K} n_cls={N_CLS}: logits {tuple(logits[0].shape)} x "
-          f"{N_BATCHES} finite; launches {launches} = {n_layers} x {N_BATCHES}; vs plain attention "
-          f"max_abs_err {diff:.3e} (tol {SLICE_ATOL}), argmax agree {agree:.4f} ({flips} of "
-          f"{mine.shape[0]} flip; >= {SLICE_ARGMAX_AGREE}) {'ok' if ok else 'FAIL'}; logit range "
-          f"[{mine.min().item():.3f}, {mine.max().item():.3f}], median top-2 margin {margin:.4f}",
-          flush=True)
+    check_logits(f"slice RPO ViT-B/16 bf16 K={K} n_cls={N_CLS}", logits, plain)
+    report_rate("RPO", setup_s, batch_s, smi)
+    profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO")
+    del rpo, plain
+
+    # ---- 5. CoOp ViT-B/16 bf16 eval through the trainer ---------------------
+    ra.launches = ma.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    coop = coop_mod.CoOp(classnames, n_ctx=N_CTX, csc=False, position="end", ctx_init="",
+                         backbone="ViT-B/16", prec="fp16", seed=1, clip_params=clip)
+    coop.text_features()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    masked_launches["CoOp text features"] = check_launches("CoOp text features", ma, text_layers)
+    logits, batch_s = run_batches(coop.eval_step, batches)
+    rect_launches["CoOp eval"] = check_launches("CoOp eval", ra, n_layers * N_BATCHES)
+    check_launches("CoOp eval", ma, text_layers)
+    print(f"CoOp launches: masked {ma.launches} = {text_layers} (text features at L = "
+          f"{coop.task.text_len}), rect {ra.launches} = {n_layers} x {N_BATCHES}", flush=True)
+    with torch.no_grad():
+        plain_tf = coop_mod.coop_text_features(coop.params, clip, coop.task,
+                                               masked_attn=ma.masked_attention_reference)
+        plain = [coop_mod.coop_logits(
+            coop.params, clip, coop.task, coop._normalize(torch.from_numpy(images).cuda()),
+            text_f=plain_tf, rect_attn=ra.rect_attention_reference,
+            masked_attn=ma.masked_attention_reference) for images in batches]
+    check_logits(f"slice CoOp ViT-B/16 bf16 N_CTX={N_CTX} end n_cls={N_CLS}", logits, plain,
+                 SINGLE_PAIR_ARGMAX_AGREE)
+    report_rate("CoOp", setup_s, batch_s, smi)
+    profile_eval_step(coop.eval_step, batches[-1], smi, "CoOp")
+
+    # ---- 6. zero-shot CLIP ---------------------------------------------------
+    ra.launches = ma.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zs = zsclip.ZeroshotCLIP(classnames, "Caltech101", backbone="ViT-B/16", seed=1,
+                             clip_params=clip)
+    zs.text_features()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    masked_launches["ZeroshotCLIP text features"] = check_launches("ZeroshotCLIP text", ma,
+                                                                   text_layers)
+    logits, batch_s = run_batches(zs.eval_step, batches)
+    rect_launches["ZeroshotCLIP eval"] = check_launches("ZeroshotCLIP eval", ra,
+                                                        n_layers * N_BATCHES)
+    check_launches("ZeroshotCLIP eval", ma, text_layers)
+    tokens = zs.text_tokens()
+    print(f"ZeroshotCLIP launches: masked {ma.launches} = {text_layers} (1 template at L = "
+          f"{tokens.shape[-1]}), rect {ra.launches} = {n_layers} x {N_BATCHES}", flush=True)
+    with torch.no_grad():
+        plain_tf = zsclip.zeroshot_text_features(clip, zs.clip_cfg, tokens,
+                                                 ma.masked_attention_reference)
+        plain = [zsclip.zeroshot_logits(
+            clip, zs.clip_cfg, zs._normalize(torch.from_numpy(images).cuda()), plain_tf,
+            ra.rect_attention_reference, ma.masked_attention_reference) for images in batches]
+    check_logits(f"slice ZeroshotCLIP ViT-B/16 bf16 Caltech101 n_cls={N_CLS}", logits, plain,
+                 SINGLE_PAIR_ARGMAX_AGREE)
+    report_rate("ZeroshotCLIP", setup_s, batch_s, smi)
+
+    ra.launches = ma.launches = 0
+    zs2 = zsclip.ZeroshotCLIP2(classnames, "Caltech101", backbone="ViT-B/16", seed=1,
+                               clip_params=clip)
+    n_templates = len(zs2.templates)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = zs2.text_features()
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t0
+    masked_launches["ZeroshotCLIP2 text features"] = check_launches(
+        "ZeroshotCLIP2 text", ma, text_layers * n_templates)
+    check_launches("ZeroshotCLIP2 text", ra, 0)
+    with torch.no_grad():
+        plain_tf = zsclip.zeroshot_text_features(clip, zs2.clip_cfg, zs2.text_tokens(),
+                                                 ma.masked_attention_reference)
+    err = (feats - plain_tf).abs().max().item()
+    min_cos = (feats * plain_tf).sum(-1).min().item()
+    ok = tuple(feats.shape) == (N_CLS, 512) and bool(torch.isfinite(feats).all()) and err <= UNIT_ATOL
+    print(f"ZeroshotCLIP2 text features ({n_templates} templates): masked launches "
+          f"{ma.launches} = {n_templates} x {text_layers}; {text_s:.3f} s; vs plain attention "
+          f"max_abs_err {err:.3e} on unit vectors (tol {UNIT_ATOL}), min cosine {min_cos:.6f} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("slice logits disagree with the plain-attention run")
-    med = statistics.median(batch_s)
-    print(f"eval on {smi}: setup (weights, text K/V, text features) {setup_s:.2f} s; "
-          f"batch seconds {[round(s, 4) for s in batch_s]}; {EVAL_BATCH / med:.1f} images/s "
-          f"at the median batch, {EVAL_BATCH * N_BATCHES / sum(batch_s):.1f} over all "
-          f"{N_BATCHES}", flush=True)
-    profile_eval_step(rpo, batches[-1], smi)
+        fail("ZeroshotCLIP2 text features disagree with the plain-attention run")
+
+    # ---- 7. cuBLAS reduced-precision bf16 reduction, off and on -------------
+    rates = {False: [], True: []}
+    outs = {}
+    for flag in (False, True, True, False):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        out, batch_s = run_batches(coop.eval_step, batches * 2)
+        rates[flag].append(EVAL_BATCH / statistics.median(batch_s))
+        outs[flag] = torch.cat(out)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    moved = (outs[True] - outs[False]).abs().max().item()
+    print(f"flag CoOp eval on {smi}, allow_bf16_reduced_precision_reduction off/on/on/off: "
+          f"{rates[False][0]:.1f} / {rates[True][0]:.1f} / {rates[True][1]:.1f} / "
+          f"{rates[False][1]:.1f} images/s (median of {2 * N_BATCHES} batches each); logits "
+          f"moved by up to {moved:.3e} between the settings", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",
@@ -261,13 +524,29 @@ def main() -> int:
         "source": "rpo_tpu_torch/ops/csrc/rect_attention.cu",
         "replaces": "rpo_tpu/ops/pallas_attention.py:196",
         "also_replaces": "rpo_tpu/ops/pallas_attention.py:114",
-        "launches": launches,
-        "max_abs_err": prod_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        "launches": sum(rect_launches.values()),
+        "launches_by_path": rect_launches,
+        "max_abs_err": rect_err,
+        "ms": rect_ms,
+        "plain_ms": rect_plain_ms,
+        "bound_ms": rect_bound_ms,
+        "bound_by": rect_bound_by,
+        "library_ms": rect_library_ms,
+        "square_197": {"ms": sq_ms, "plain_ms": sq_plain_ms, "bound_ms": sq_bound_ms,
+                       "bound_by": sq_bound_by, "library_ms": sq_library_ms},
+    }, {
+        "name": "masked_attention",
+        "route": "cuda",
+        "source": "rpo_tpu_torch/ops/csrc/rect_attention.cu",
+        "replaces": "rpo_tpu/ops/pallas_attention.py:262",
+        "launches": sum(masked_launches.values()),
+        "launches_by_path": masked_launches,
+        "max_abs_err": masked_err,
+        "ms": masked_ms,
+        "plain_ms": masked_plain_ms,
+        "bound_ms": masked_bound_ms,
+        "bound_by": masked_bound_by,
+        "library_ms": masked_library_ms,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

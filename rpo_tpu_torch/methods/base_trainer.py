@@ -7,7 +7,7 @@ the checkpoint-state install with its shape validation.  A subclass's
 ``self._frozen`` and calls ``_install_steps`` with two functions:
 
   text_features(params, frozen) -> per-task tensors for eval (or None)
-  eval_step(params, frozen, text_f, images_u8, rect_attn) -> logits
+  eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn) -> logits
 
 The engine around it (config, data, epoch loop, training) is not ported
 yet; the trainer takes its settings as arguments.
@@ -22,7 +22,8 @@ import torch
 from ..data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, device_normalize_fn
 from ..device import DeviceLike, resolve_device
 from ..models.clip.model import ARCHS, cast_params, init_clip
-from ..ops.attention import Attention
+from ..ops.attention import Attention, MaskedAttention
+from ..ops.masked_attention import masked_attention
 from ..ops.rect_attention import rect_attention
 
 
@@ -85,13 +86,19 @@ class CLIPMethodTrainer:
         return self._text_f_cache
 
     @torch.no_grad()
-    def eval_step(self, images_u8, rect_attn: Attention = rect_attention) -> torch.Tensor:
+    def eval_step(
+        self,
+        images_u8,
+        rect_attn: Attention = rect_attention,
+        masked_attn: MaskedAttention = masked_attention,
+    ) -> torch.Tensor:
         """(B, n_cls) logits for a uint8 (B, H, W, 3) batch, on the device.
-        ``rect_attn`` replaces the vision tower's attention kernel (for a
-        comparison with its plain version)."""
+        ``rect_attn`` and ``masked_attn`` replace the attention kernels
+        (for a comparison with their plain versions); the cached text
+        features are computed with the kernels."""
         images = torch.as_tensor(images_u8).to(self.device)
         return self._eval_step(
-            self.params, self._frozen, self.text_features(), images, rect_attn
+            self.params, self._frozen, self.text_features(), images, rect_attn, masked_attn
         )
 
     def model_inference(self, images: np.ndarray) -> np.ndarray:

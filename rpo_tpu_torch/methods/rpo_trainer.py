@@ -48,7 +48,8 @@ class RPO(CLIPMethodTrainer):
         def text_features(params, frozen):
             return core.encode_text_with_prompts(params, frozen, task)
 
-        def eval_step(params, frozen, text_f, images_u8, rect_attn):
+        def eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn):
+            # the rect tower reads no bias: masked_attn has nothing to replace
             return core.rpo_logits(
                 params, frozen, task, normalize(images_u8), text_f=text_f, rect_attn=rect_attn
             )

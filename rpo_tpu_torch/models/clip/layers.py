@@ -21,11 +21,13 @@ import torch.nn.functional as F
 
 from ...ops.attention import (
     Attention,
+    MaskedAttention,
     multihead_attention,
     multihead_attention_cached,
     multihead_attention_kv,
     multihead_attention_rect,
 )
+from ...ops.masked_attention import masked_attention
 from ...ops.rect_attention import rect_attention
 
 
@@ -67,8 +69,12 @@ def residual_block(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
-    x = x + multihead_attention(layer_norm(x, params["ln_1"]), params["attn"], n_heads, bias)
+    x = x + multihead_attention(
+        layer_norm(x, params["ln_1"]), params["attn"], n_heads, bias, rect_attn, masked_attn
+    )
     x = x + mlp(layer_norm(x, params["ln_2"]), params["mlp"])
     return x
 
@@ -78,11 +84,13 @@ def residual_block_kv(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ):
     """residual_block that also returns this layer's (k, v) heads
     ((B, H, L, Dh)), the per-layer state of the RPO frozen-text cache."""
     attn_out, k, v = multihead_attention_kv(
-        layer_norm(x, params["ln_1"]), params["attn"], n_heads, bias
+        layer_norm(x, params["ln_1"]), params["attn"], n_heads, bias, rect_attn, masked_attn
     )
     x = x + attn_out
     x = x + mlp(layer_norm(x, params["ln_2"]), params["mlp"])
@@ -128,9 +136,14 @@ def transformer(
     stacked_blocks: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Run a stack of residual blocks over params with a leading
-    [n_layers] axis."""
+    [n_layers] axis.  ``rect_attn`` and ``masked_attn`` are the attention
+    functions every block uses (the kernels by default)."""
     for i in range(n_layers(stacked_blocks)):
-        x = residual_block(x, layer_params(stacked_blocks, i), n_heads, bias)
+        x = residual_block(
+            x, layer_params(stacked_blocks, i), n_heads, bias, rect_attn, masked_attn
+        )
     return x

@@ -14,7 +14,9 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from ...ops.attention import NEG_INF
+from ...ops.attention import NEG_INF, Attention, MaskedAttention
+from ...ops.masked_attention import masked_attention
+from ...ops.rect_attention import rect_attention
 from .layers import layer_norm, transformer
 
 Params = Dict[str, Any]
@@ -256,6 +258,37 @@ def vision_embed(params: Params, cfg: CLIPConfig, images: torch.Tensor) -> torch
     return x + params["positional_embedding"].to(dtype)
 
 
+def vision_transformer_run(
+    params: Params,
+    cfg: CLIPConfig,
+    x: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
+) -> torch.Tensor:
+    """ln_pre, then the transformer over already-embedded vision tokens."""
+    x = layer_norm(x, params["ln_pre"])
+    return transformer(x, params["blocks"], cfg.vision_heads, bias, rect_attn, masked_attn)
+
+
+def encode_image(
+    params: Params,
+    cfg: CLIPConfig,
+    images: torch.Tensor,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
+) -> torch.Tensor:
+    """Standard CLIP image features (B, embed_dim): the ViT CLS head.  The
+    unmasked tower's attention is the rect kernel with Lq = Lk."""
+    if not cfg.is_vit:
+        raise NotImplementedError("ResNet towers are not ported yet")
+    v = params["visual"]
+    x = vision_embed(v, cfg, images)
+    x = vision_transformer_run(v, cfg, x, None, rect_attn, masked_attn)
+    x = layer_norm(x[:, 0, :], v["ln_post"])
+    return torch.matmul(x, v["proj"])
+
+
 # ---------------------------------------------------------------------------
 # text tower stages
 # ---------------------------------------------------------------------------
@@ -272,19 +305,48 @@ def text_transformer_run(
     cfg: CLIPConfig,
     x: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
-    return transformer(x, params["blocks"], cfg.text_heads, bias)
+    return transformer(x, params["blocks"], cfg.text_heads, bias, rect_attn, masked_attn)
 
 
-def encode_text(params: Params, cfg: CLIPConfig, tokens: torch.Tensor) -> torch.Tensor:
+def encode_text(
+    params: Params,
+    cfg: CLIPConfig,
+    tokens: torch.Tensor,
+    masked_attn: MaskedAttention = masked_attention,
+) -> torch.Tensor:
     """Standard CLIP text features: the EOT-position head.  Runs at
     ``tokens.shape[1]``; tokens truncated anywhere past the longest EOT
-    give the same features under the causal mask."""
+    give the same features under the causal mask, which is shared by the
+    whole batch and goes to ``masked_attn``."""
     t = params["text"]
     x = text_embed(t, tokens)
     bias = causal_mask(tokens.shape[1], x.device)[None, None]
-    x = text_transformer_run(t, cfg, x, bias)
+    x = text_transformer_run(t, cfg, x, bias, masked_attn=masked_attn)
     x = layer_norm(x, t["ln_final"])
     eot_pos = tokens.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot_pos]
     return torch.matmul(x, t["text_projection"])
+
+
+def clip_forward(
+    params: Params,
+    cfg: CLIPConfig,
+    images: torch.Tensor,
+    tokens: torch.Tensor,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contrastive logits (logits_per_image, logits_per_text).  As in the
+    JAX package, the features are normalised in the activation dtype and
+    exp(logit_scale) is cast to it too (unlike ``coop_logits``, which
+    works in float32)."""
+    img = encode_image(params, cfg, images, rect_attn, masked_attn)
+    txt = encode_text(params, cfg, tokens, masked_attn)
+    img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
+    txt = txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True)
+    scale = torch.exp(params["logit_scale"]).to(img.dtype)
+    logits_per_image = scale * img @ txt.T
+    return logits_per_image, logits_per_image.T

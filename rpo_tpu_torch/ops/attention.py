@@ -6,12 +6,18 @@ reach the kernel as strided (B, H, L, Dh) views without a copy.
 Attention logits and softmax run in float32 whatever the activation
 dtype; the probabilities are cast to v's dtype before the product with v.
 
-Bias-free attention goes to ``rect_attention`` (the CUDA kernel on a CUDA
-tensor, its plain version on a CPU tensor).  Attention with a bias — the
-text towers' masks, the cached text cross-attention — runs the plain
-f32-softmax math here, as the JAX package sends it to XLA on its eval
-path too.  The JAX package's thread-local Pallas scope, its environment
+Bias-free attention goes to ``rect_attention``; square attention with a
+row-aligned (1 | B, 1, L, L) bias — the text towers' masks — goes to
+``masked_attention`` (each the CUDA kernel on a CUDA tensor, its plain
+version on a CPU tensor).  Every other bias — column-broadcast, per-head,
+the cached text cross-attention (Lq != Lk) — runs the plain f32-softmax
+math here, as the JAX package sends it to XLA.  The dispatch looks at
+shapes only: the JAX package's thread-local Pallas scope, its environment
 switches and its tensor-parallel hooks have no counterpart here.
+
+The attention functions are arguments (``rect_attn``, ``masked_attn``)
+with the kernels as defaults, threaded down from the towers, so that a
+caller can run the same path on the plain versions.
 """
 from __future__ import annotations
 
@@ -19,11 +25,29 @@ from typing import Callable, Optional
 
 import torch
 
+from .masked_attention import masked_attention
 from .rect_attention import rect_attention
 
 NEG_INF = -1e9  # finite -inf stand-in: keeps softmax NaN-free for fully masked rows
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+MaskedAttention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def takes_masked_kernel(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> bool:
+    """The guard of ``rpo_tpu/ops/attention.py:128-143``: square attention
+    with a full (1 | B, 1, L, L) bias.  A column-broadcast bias (its last
+    two dims not (Lq, Lk)), a per-head bias (the kernel reads head 0's
+    only) and a batch dim other than 1 or B take the plain math.  The JAX
+    guard assumes a 4-D bias, as every caller passes one; so does this."""
+    return (
+        bias.dim() == 4
+        and q.shape[-2] == k.shape[-2]
+        and bias.shape[-2] == q.shape[-2]
+        and bias.shape[-1] == k.shape[-2]
+        and bias.shape[1] == 1
+        and bias.shape[0] in (1, q.shape[0])
+    )
 
 
 def dot_product_attention(
@@ -31,6 +55,8 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Scaled dot-product attention.
 
@@ -38,7 +64,9 @@ def dot_product_attention(
     additive.  Returns (B, H, Lq, Dh) in v.dtype.
     """
     if bias is None:
-        return rect_attention(q, k, v)
+        return rect_attn(q, k, v)
+    if takes_masked_kernel(q, k, bias):
+        return masked_attn(q, k, v, bias)
     scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     logits = logits + bias.float()
@@ -77,6 +105,8 @@ def multihead_attention(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Self-attention over x: (B, L, D) with the fused QKV projection.
 
@@ -84,7 +114,7 @@ def multihead_attention(
     weights in the (in, out) layout.
     """
     q, k, v = _split_qkv(x, params, n_heads)
-    out = dot_product_attention(q, k, v, bias)
+    out = dot_product_attention(q, k, v, bias, rect_attn, masked_attn)
     return _out_proj(out, params, x.dtype)
 
 
@@ -93,12 +123,14 @@ def multihead_attention_kv(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ):
     """Like multihead_attention, but also returns the (k, v) heads
     ((B, H, L, Dh) each) for a later cross-attention (the RPO frozen-text
     K/V cache)."""
     q, k, v = _split_qkv(x, params, n_heads)
-    out = dot_product_attention(q, k, v, bias)
+    out = dot_product_attention(q, k, v, bias, rect_attn, masked_attn)
     return _out_proj(out, params, x.dtype), k, v
 
 

@@ -12,10 +12,15 @@ There is no fallback from the kernel to the plain version.  ``launches``
 counts the kernel launches, so a run can show that its path went through
 the kernel.  The backward is a plain-PyTorch recompute, as in the JAX
 package, which has no backward kernel either.
+
+The plain math (``_softmax_attend``, ``_attention_bwd_math``) and the
+library loader are shared with ``masked_attention``, whose kernel is the
+biased instantiation in the same CUDA source.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -29,23 +34,35 @@ _MAX_GRID_YZ = 65535
 _ERR_SHARED_MEMORY = -3  # kErrSharedMemory in csrc/rect_attention.cu
 
 
-def rect_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """The kernel's math in plain PyTorch (``_softmax_attend``, bias None):
-    f32 scores times D^-1/2, f32 softmax normalised before the cast,
-    probabilities rounded to v's dtype, f32-accumulated product with v,
-    output in q's dtype."""
+def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The one copy of the kernels' math in plain PyTorch
+    (``_softmax_attend``): f32 scores times D^-1/2, plus the f32 bias if
+    any, f32 softmax normalised before the cast, probabilities rounded to
+    v's dtype, f32-accumulated product with v, output in q's dtype."""
     scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
     s = s - s.amax(dim=-1, keepdim=True)
     e = torch.exp(s)
     w = e / e.sum(dim=-1, keepdim=True)
     return torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _attention_bwd_math(q, k, v, g):
-    """Softmax-recompute backward (``_attention_bwd_math`` with bias None)."""
+def rect_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The rect kernel's math in plain PyTorch (``_softmax_attend`` with
+    bias None)."""
+    return _softmax_attend(q, k, v)
+
+
+def _attention_bwd_math(q, k, v, bias, g):
+    """Softmax-recompute backward (``_attention_bwd_math``), shared by
+    both kernels (bias None for the rect one)."""
     scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        s = s + bias.float()
     w = torch.softmax(s, dim=-1)
     w_v = w.to(v.dtype)
     dv = torch.matmul(w_v.transpose(-1, -2), g)
@@ -57,20 +74,46 @@ def _attention_bwd_math(q, k, v, g):
 
 
 def _lib() -> ctypes.CDLL:
+    """``csrc/rect_attention.cu``, which holds both attention kernels."""
     lib = _build.load("rect_attention")
-    fn = lib.rect_attention_forward
-    if fn.argtypes is None:
-        fn.argtypes = (
+    if lib.rect_attention_forward.argtypes is None:
+        strides = [ctypes.c_longlong] * 12
+        lib.rect_attention_forward.argtypes = (
             [ctypes.c_int, ctypes.c_int]
             + [ctypes.c_void_p] * 4
             + [ctypes.c_int] * 5
-            + [ctypes.c_longlong] * 12
+            + strides
             + [ctypes.c_float, ctypes.c_void_p]
         )
-        fn.restype = ctypes.c_int
+        lib.masked_attention_forward.argtypes = (
+            [ctypes.c_int, ctypes.c_int]
+            + [ctypes.c_void_p] * 5
+            + [ctypes.c_int] * 4
+            + strides
+            + [ctypes.c_longlong] * 2
+            + [ctypes.c_float, ctypes.c_void_p]
+        )
+        lib.rect_attention_forward.restype = ctypes.c_int
+        lib.masked_attention_forward.restype = ctypes.c_int
         lib.rect_attention_error_string.argtypes = [ctypes.c_int]
         lib.rect_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _launch_error(lib: ctypes.CDLL, name: str, rc: int, Lk: int, q: torch.Tensor) -> Exception:
+    """The exception for a nonzero return code of a launch."""
+    if rc == _ERR_SHARED_MEMORY:
+        return ValueError(f"Lk={Lk} at D={q.shape[-1]} in {q.dtype} does not fit one block's "
+                          "shared memory")
+    msg = lib.rect_attention_error_string(rc).decode()
+    return RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
+
+
+def _out_like(q: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, D) output written as (B, L, H, D), so that the head merge
+    of the output projection is a view."""
+    B, H, L, D = q.shape
+    return torch.empty((B, L, H, D), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -110,9 +153,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
     lib = _lib()
-    # written as (B, Lq, H, D) so that the head merge of the output
-    # projection is a view
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    out = _out_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.rect_attention_forward(
         _DTYPES[q.dtype], q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -120,11 +161,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         D ** -0.5, stream,
     )
-    if rc == _ERR_SHARED_MEMORY:
-        raise ValueError(f"Lk={Lk} at D={D} in {q.dtype} does not fit one block's shared memory")
     if rc != 0:
-        msg = lib.rect_attention_error_string(rc).decode()
-        raise RuntimeError(f"rect_attention kernel launch failed ({rc}): {msg}")
+        raise _launch_error(lib, "rect_attention", rc, Lk, q)
     launches += 1
     return out
 
@@ -142,7 +180,7 @@ class _RectAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        return _attention_bwd_math(q, k, v, g)
+        return _attention_bwd_math(q, k, v, None, g)
 
 
 def rect_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

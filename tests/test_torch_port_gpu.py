@@ -6,10 +6,28 @@ package's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_port_gpu.py
 """
+import numpy as np
 import pytest
 import torch
 
+from rpo_tpu_torch.methods.rpo import build_text_mask, build_visual_mask
+from rpo_tpu_torch.models.clip.model import causal_mask
+from rpo_tpu_torch.ops import masked_attention as ma
 from rpo_tpu_torch.ops import rect_attention as ra
+
+
+@pytest.fixture(autouse=True)
+def full_precision_matmuls():
+    """No TF32 and no reduced-precision bf16 reduction in cuBLAS: the
+    port's parity contract is "accumulate in f32, round once"."""
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), (torch.backends.cudnn, "allow_tf32"), (
+        torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction")
+    saved = [getattr(obj, name) for obj, name in flags]
+    for obj, name in flags:
+        setattr(obj, name, False)
+    yield
+    for (obj, name), value in zip(flags, saved):
+        setattr(obj, name, value)
 
 
 @pytest.mark.gpu
@@ -67,6 +85,84 @@ def test_backward_through_the_kernel_on_gpu():
     for fn in (ra.rect_attention, ra.rect_attention_reference):
         leaves = [t.clone().requires_grad_(True) for t in base]
         (fn(*leaves) * cot).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _bias(kind, B, L):
+    """The f32 biases of the masked kernel's paths, on the card."""
+    if kind == "shared causal":
+        return causal_mask(L, "cuda")[None, None]
+    if kind == "per-class text mask":
+        return torch.from_numpy(build_text_mask(np.arange(B) % (L - 8) + 4, L)).cuda()
+    if kind == "shared visual mask":
+        return torch.from_numpy(build_visual_mask(L, 24)).cuda()
+    if kind == "per-batch, one row fully masked":
+        bias = causal_mask(L, "cuda")[None, None].repeat(B, 1, 1, 1)
+        bias[1, 0, 4, :] = -1e9
+        return bias
+    raise KeyError(kind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "shape,kind,dtype,tol",
+    [
+        ((51, 8, 77, 64), "shared causal", torch.bfloat16, 2e-2),
+        ((51, 8, 24, 64), "shared causal", torch.bfloat16, 2e-2),
+        ((51, 8, 77, 64), "per-class text mask", torch.bfloat16, 2e-2),
+        ((4, 12, 221, 64), "shared visual mask", torch.bfloat16, 2e-2),
+        ((3, 2, 10, 32), "per-batch, one row fully masked", torch.float32, 1e-5),
+        ((2, 4, 77, 128), "shared causal", torch.bfloat16, 2e-2),
+        ((2, 3, 70, 32), "per-class text mask", torch.bfloat16, 2e-2),
+    ],
+)
+def test_masked_kernel_matches_plain_version_on_gpu(shape, kind, dtype, tol):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    B, H, L, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(B, H, L, D, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    bias = _bias(kind, B, L)
+    before = ma.launches
+    got = ma.masked_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert ma.launches == before + 1
+    want = ma.masked_attention_reference(q, k, v, bias)
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= tol
+    if bias.shape[0] == 1:  # read in place: the same as a per-batch copy
+        copy = ma.masked_attention(q, k, v, bias.expand(B, 1, L, L).contiguous())
+        assert torch.equal(got, copy)
+
+
+@pytest.mark.gpu
+def test_masked_kernel_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    z = torch.zeros(2, 2, 8, 64, device="cuda")
+    with pytest.raises(ValueError, match="last two dims"):
+        ma.masked_attention(z, z, z, torch.zeros(1, 1, 8, 1, device="cuda"))
+    with pytest.raises(ValueError, match="square"):
+        ma.masked_attention(z, z[:, :, :5], z[:, :, :5], torch.zeros(1, 1, 8, 5, device="cuda"))
+    with pytest.raises(ValueError, match="head dim"):
+        ma.masked_attention(*(torch.zeros(1, 1, 8, 48, device="cuda"),) * 3,
+                            torch.zeros(1, 1, 8, 8, device="cuda"))
+
+
+@pytest.mark.gpu
+def test_backward_through_the_masked_kernel_on_gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    base = [torch.randn(3, 2, 21, 64, generator=gen, device="cuda") for _ in range(3)]
+    cot = torch.randn(3, 2, 21, 64, generator=gen, device="cuda")
+    bias = _bias("per-batch, one row fully masked", 3, 21)
+    grads = []
+    for fn in (ma.masked_attention, ma.masked_attention_reference):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        (fn(*leaves, bias) * cot).sum().backward()
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)

@@ -34,6 +34,12 @@ def test_importing_the_port_loads_neither_jax_nor_rpo_tpu():
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in (ROOT / "rpo_tpu_torch").rglob("*.py")
     )
+    assert {
+        "rpo_tpu_torch.ops.masked_attention",
+        "rpo_tpu_torch.methods.coop",  # the CoOp trainer lives beside its functions
+        "rpo_tpu_torch.methods.zsclip",
+        "rpo_tpu_torch.methods.templates",
+    } <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -50,12 +56,17 @@ def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     from rpo_tpu_torch.device import resolve_device
+    from rpo_tpu_torch.methods.coop import CoOp
     from rpo_tpu_torch.methods.rpo_trainer import RPO
+    from rpo_tpu_torch.methods.zsclip import ZeroshotCLIP, ZeroshotCLIP2
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RPO(["cat", "dog"], K=2, backbone="TINY")
+    for cls in (CoOp, ZeroshotCLIP, ZeroshotCLIP2):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(["cat", "dog"], backbone="TINY")
     assert resolve_device("cpu") == torch.device("cpu")
 
 
