@@ -24,7 +24,15 @@ Phases, one line each (any failure exits non-zero):
   6. zero-shot  ZeroshotCLIP (Caltech101's template) as in phase 5, and
               ZeroshotCLIP2's 8-template text features (96 masked
               launches) against their plain version;
-  7. flag     CoOp eval images/s with cuBLAS's reduced-precision bf16
+  7. CoCoOp   CoCoOp evaluation (N_CTX 4, no CTX_INIT) on the same
+              backbone and batches: 12 rect launches per batch for the
+              image tower, then per chunk of 10 images one (510, 16, 512)
+              batch of text towers whose every layer is one launch of the
+              whole-layer kernel (120 per batch), no masked launch; logits
+              against the same path on both plain versions, on the text
+              side's and on the vision side's, and each run against an
+              f32 witness; the checks again on a second random draw;
+  8. flag     CoOp eval images/s with cuBLAS's reduced-precision bf16
               reduction off and on, in turns.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
@@ -34,11 +42,13 @@ rpo_tpu.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -60,6 +70,12 @@ N_BATCHES = 3
 NEG_INF = -1e9
 BF16_TOL = 2e-2  # inputs N(0, 1): about 2 bf16 ulps of outputs below 2
 F32_TOL = 1e-5
+# The fused text layer against its plain version is held element by element
+# to BF16_TOL * max(|plain|, 1) (a rounding flip is one bf16 ulp, 2^-7 of
+# the element at most) and in the mean to FUSED_MEAN_TOL: on the H100 the
+# mean error is 0 to 3.7e-5 at the phase-3 shapes (flips on a few elements
+# in 10^3), while a dropped bias of std 0.02 moves it by about 1.6e-2.
+FUSED_MEAN_TOL = 1e-4
 # Slice logits, kernel vs plain attention in every layer: the two differ
 # by bf16 rounding flips (summation order) that compound over 12 layers;
 # logits are exp(logit_scale) = 14.3 x a cosine (averaged over K pairs
@@ -73,6 +89,20 @@ SLICE_ARGMAX_AGREE = 0.98
 # weights leave a median top-2 margin of 0.015: 4 of 300 argmax flipped
 # for CoOp on the card.  A kernel fault would break SLICE_ATOL first.
 SINGLE_PAIR_ARGMAX_AGREE = 0.97
+# CoCoOp conditions every class's context on the image feature through the
+# meta-net, so a rounding flip in the vision tower moves all 51 text
+# features of an image, not only its side of the cosine.  On random weights
+# two bf16 runs then disagree about as much as either does with the same
+# path in float32 (on the H100, second draw: 32-36 of 300 argmaxes), so an
+# argmax bar between two bf16 runs that differ in the vision tower holds
+# neither to anything.  Those runs are held to an f32 witness instead,
+# against the all-plain run, by a sign test: of the images where exactly
+# one of the two has the witness's argmax, the plain run may win more often
+# by at most WITNESS_SIGMAS standard deviations of a fair coin (three, for
+# the six such tests of a run).  The text side alone (the fused kernel
+# against its plain version, on the same image features) keeps
+# SINGLE_PAIR_ARGMAX_AGREE.
+WITNESS_SIGMAS = 3.0
 # Zero-shot text features are unit vectors of 512 components of about
 # 0.04 each; kernel vs plain attention over 12 bf16 layers moves a
 # component by rounding flips only, so 1e-2 is a quarter of one.
@@ -82,6 +112,15 @@ UNIT_ATOL = 1e-2
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     raise SystemExit(1)
+
+
+def fused_errors(out: torch.Tensor, ref: torch.Tensor):
+    """(max abs error, mean abs error, largest error over its element's
+    tolerance BF16_TOL * max(|ref|, 1)) of the fused layer against its
+    plain version."""
+    diff = (out.float() - ref.float()).abs()
+    tol = BF16_TOL * ref.float().abs().clamp(min=1.0)
+    return diff.max().item(), diff.mean().item(), (diff / tol).max().item()
 
 
 def time_ms(fn, n: int, warmup: int = 3) -> float:
@@ -148,6 +187,22 @@ def mask(kind: str, B: int, L: int) -> torch.Tensor:
     return torch.from_numpy(m).cuda()
 
 
+def text_block(gen, d: int) -> dict:
+    """One text layer's params on the card in bf16: CLIP's init scales,
+    with nonzero biases and LayerNorm parameters other than (1, 0)."""
+    def normal(*shape, std):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    return {
+        "ln_1": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
+        "attn": {"qkv_w": normal(d, 3 * d, std=d ** -0.5), "qkv_b": normal(3 * d, std=0.02),
+                 "out_w": normal(d, d, std=d ** -0.5 / 5), "out_b": normal(d, std=0.02)},
+        "ln_2": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
+        "mlp": {"fc_w": normal(d, 4 * d, std=(2 * d) ** -0.5), "fc_b": normal(4 * d, std=0.02),
+                "proj_w": normal(4 * d, d, std=d ** -0.5 / 5), "proj_b": normal(d, std=0.02)},
+    }
+
+
 def profile_eval_step(step, images, smi: str, label: str) -> None:
     """One more eval batch under torch.profiler: device time by kernel
     group and the device's idle share of the batch's wall time."""
@@ -166,7 +221,8 @@ def profile_eval_step(step, images, smi: str, label: str) -> None:
             continue
         us = evt.self_device_time_total
         n = evt.key.lower()
-        group = ("masked_attention kernel" if "attention_kernel" in n and "true" in n
+        group = ("fused_text_layer kernel" if "fused_text_layer" in n
+                 else "masked_attention kernel" if "attention_kernel" in n and "true" in n
                  else "rect_attention kernel" if "attention_kernel" in n
                  else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90"))
                  else "layer_norm" if "layer_norm" in n
@@ -197,8 +253,12 @@ def run_batches(step, batches):
     return logits, batch_s
 
 
-def check_logits(label: str, logits, plain, min_agree: float = SLICE_ARGMAX_AGREE) -> None:
-    """Logits finite, (100, 51) each, and close to the plain run's."""
+def check_logits(label: str, logits, plain, min_agree: Optional[float] = SLICE_ARGMAX_AGREE,
+                 stop: bool = True) -> bool:
+    """Logits finite, (100, 51) each, and close to the plain run's, with
+    argmax agreement >= ``min_agree`` unless it is None (then the agreement
+    is only printed); on a disagreement exits, or with ``stop`` False
+    returns False."""
     for out in logits:
         if tuple(out.shape) != (EVAL_BATCH, N_CLS) or not bool(torch.isfinite(out).all()):
             fail(f"{label} logits have shape {tuple(out.shape)} or are not finite")
@@ -208,14 +268,75 @@ def check_logits(label: str, logits, plain, min_agree: float = SLICE_ARGMAX_AGRE
     agree = 1.0 - flips / mine.shape[0]
     top2 = plain.topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).median().item()
-    ok = diff <= SLICE_ATOL and agree >= min_agree
+    ok = diff <= SLICE_ATOL and (min_agree is None or agree >= min_agree)
+    bar = "held to the f32 witness below" if min_agree is None else f">= {min_agree}"
     print(f"{label}: logits {tuple(logits[0].shape)} x {len(logits)} finite; vs plain attention "
           f"max_abs_err {diff:.3e} (tol {SLICE_ATOL}), argmax agree {agree:.4f} ({flips} of "
-          f"{mine.shape[0]} flip; >= {min_agree}) {'ok' if ok else 'FAIL'}; logit range "
+          f"{mine.shape[0]} flip; {bar}) {'ok' if ok else 'FAIL'}; logit range "
           f"[{mine.min().item():.3f}, {mine.max().item():.3f}], median top-2 margin {margin:.4f}",
           flush=True)
-    if not ok:
+    if not ok and stop:
         fail(f"{label} logits disagree with the plain-attention run")
+    return ok
+
+
+def cocoop_checks(label: str, cocoop, clip, batches, logits) -> None:
+    """CoCoOp's logits against the same path on both plain versions, on the
+    text side's alone and on the vision side's alone, each within
+    SLICE_ATOL, the text side alone also at SINGLE_PAIR_ARGMAX_AGREE; then
+    every run against an f32 witness, the same weights, images and path in
+    float32 on the plain versions: each run with a kernel in it no further
+    from the witness's argmax than the all-plain run (WITNESS_SIGMAS)."""
+    from rpo_tpu_torch.data.transforms import (CLIP_PIXEL_MEAN, CLIP_PIXEL_STD,
+                                               device_normalize_fn)
+    from rpo_tpu_torch.methods.cocoop import cocoop_logits, eval_chunk
+    from rpo_tpu_torch.models.clip.model import cast_params
+    from rpo_tpu_torch.ops import fused_text_layer as ftl
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    runs, failed = {"kernels": logits}, []
+    for what, rect_attn, text_layer, min_agree in (
+        ("both plain", ra.rect_attention_reference, ftl.fused_text_layer_reference, None),
+        ("text side plain", ra.rect_attention, ftl.fused_text_layer_reference,
+         SINGLE_PAIR_ARGMAX_AGREE),
+        ("vision side plain", ra.rect_attention_reference, ftl.fused_text_layer, None),
+    ):
+        runs[what] = [cocoop.eval_step(images, rect_attn=rect_attn, text_layer=text_layer)
+                      for images in batches]
+        if not check_logits(f"{label} [{what}]", logits, runs[what], min_agree, stop=False):
+            failed.append(what)
+    clip32 = cast_params(clip, torch.float32)
+    normalize32 = device_normalize_fn(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, dtype=torch.float32)
+    with torch.no_grad():
+        witness = torch.cat([cocoop_logits(
+            cocoop.params, clip32, cocoop.task, normalize32(torch.from_numpy(images).cuda()),
+            chunk=eval_chunk(len(images)), rect_attn=ra.rect_attention_reference,
+            text_layer=ftl.fused_text_layer_reference, masked_attn=ma.masked_attention_reference)
+            for images in batches])
+    top = witness.argmax(-1)
+    top2 = witness.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).median().item()
+    right = {what: torch.cat(out).argmax(-1) == top for what, out in runs.items()}
+    parts = []
+    for what, out in runs.items():
+        diff = (torch.cat(out) - witness).abs()
+        part = (f"{what} {int((~right[what]).sum())} flips, max abs {diff.max().item():.3e}, "
+                f"mean abs {diff.mean().item():.3e}")
+        if what != "both plain":  # a run with a kernel in it, by the sign test
+            a = int((right["both plain"] & ~right[what]).sum())
+            b = int((right[what] & ~right["both plain"]).sum())
+            limit = WITNESS_SIGMAS * math.sqrt(max(a + b, 1))
+            part += (f" (plain alone right on {a}, this run alone on {b}: {a - b} <= "
+                     f"{limit:.2f} {'ok' if a - b <= limit else 'FAIL'})")
+            if a - b > limit:
+                failed.append(f"{what} against the witness")
+        parts.append(part)
+    print(f"{label} against an f32 witness (the same weights, images and path in float32 on "
+          f"the plain versions, median top-2 margin {margin:.4f}), of {len(top)} argmaxes: "
+          + "; ".join(parts), flush=True)
+    if failed:
+        fail(f"{label}: {', '.join(failed)} disagree")
 
 
 def check_launches(label: str, module, want: int) -> int:
@@ -238,11 +359,13 @@ def main() -> int:
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rpo_tpu_torch.methods import cocoop as cocoop_mod
     from rpo_tpu_torch.methods import coop as coop_mod
     from rpo_tpu_torch.methods import zsclip
     from rpo_tpu_torch.methods.rpo_trainer import RPO
     from rpo_tpu_torch.models.clip.model import ARCHS, cast_params, init_clip
     from rpo_tpu_torch.ops import _build
+    from rpo_tpu_torch.ops import fused_text_layer as ftl
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
 
@@ -265,7 +388,7 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     secs, logs = _build.build_all()
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if any(w in ln for w in ("entry function", "registers", "spill"))]
     print(f"build: {len(logs)} source(s) in {secs:.1f} s", flush=True)
     for ln in ptxas:
         print(f"  ptxas: {ln}")
@@ -304,6 +427,23 @@ def main() -> int:
             fail(f"rect_attention {label}: max abs err {err} > {tol}")
         if rect_err is None:
             rect_err = err
+    # the kernel and its plain version against an f64 evaluation of the same
+    # contract (probabilities rounded to bf16, the output not rounded): is
+    # either nearer the exact value?
+    q, k, v = fused_qkv(gen, 100, 12, 197, 64, torch.bfloat16)
+    with torch.no_grad():
+        s64 = torch.matmul(q.double(), k.double().transpose(-1, -2)) * 64 ** -0.5
+        exact = torch.matmul(torch.softmax(s64, -1).to(torch.bfloat16).double(), v.double())
+        del s64
+        readings = []
+        for what, out in (("kernel", ra.rect_attention(q, k, v)),
+                          ("plain", ra.rect_attention_reference(q, k, v))):
+            off = int((out != exact.to(torch.bfloat16)).sum())
+            readings.append(f"{what} mean abs {(out.double() - exact).abs().mean().item():.4e}, "
+                            f"{off} of {out.numel()} off the correctly rounded value")
+        del exact
+    print("kernel rect_attention (100,12,197,197,64) bf16 against an f64 evaluation of its "
+          "contract: " + "; ".join(readings), flush=True)
     try:
         z = torch.zeros(1, 1, 197, 128, device="cuda")
         ra.rect_attention(z[:, :, :8], z, z)
@@ -386,6 +526,71 @@ def main() -> int:
           f"ms, bound {masked_bound_ms:.5f} ms by {masked_bound_by} ({n_bytes / 1e6:.2f} MB, "
           f"{n_flops / 1e9:.3f} GFLOP)", flush=True)
 
+    fused_checks = [
+        ("CoCoOp eval chunk, the slice", (510, 16, 512, 8)),
+        ("the JAX selftest shape", (408, 16, 512, 8)),
+        ("ragged N, TINY widths, head dim 32", (13, 16, 64, 2)),
+        ("L 80 (77 padded)", (4, 80, 512, 8)),
+        ("d 768, L 80: the MLP in column passes", (3, 80, 768, 12)),
+    ]
+    fused_err = None
+    for label, (N, L, d, heads) in fused_checks:
+        raw = text_block(gen, d)
+        blk = ftl.with_kernel_layout(raw)
+        x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+        causal = mask("causal", 1, L)[0, 0]
+        with torch.no_grad():
+            out = ftl.fused_text_layer(x, blk, heads, causal)
+            ref = ftl.fused_text_layer_reference(x, blk, heads, causal)
+            # the weights laid out at the launch instead of once beforehand
+            same = torch.equal(out, ftl.fused_text_layer(x, raw, heads, causal))
+        torch.cuda.synchronize()
+        err, mean, worst = fused_errors(out, ref)
+        ok = worst <= 1 and mean <= FUSED_MEAN_TOL and same and bool(torch.isfinite(out).all())
+        print(f"kernel fused_text_layer {label} {(N, L, d)} {heads} heads bf16: max_abs_err "
+              f"{err:.3e}, max err / tol {worst:.3f} (tol {BF16_TOL:g} x max(|plain|, 1) each), "
+              f"mean {mean:.3e} (tol {FUSED_MEAN_TOL:g}); per-launch layout gives the same "
+              f"output: {same} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"fused_text_layer {label}: max err / tol {worst}, mean {mean}, same {same}")
+        if fused_err is None:
+            fused_err = err
+            # the bounds catch a dropped bias: the plain version without out_b
+            no_bias = {**blk, "attn": {**blk["attn"], "out_b": torch.zeros_like(
+                blk["attn"]["out_b"])}}
+            with torch.no_grad():
+                _, mean_nb, worst_nb = fused_errors(
+                    out, ftl.fused_text_layer_reference(x, no_bias, heads, causal))
+            if worst_nb <= 1 and mean_nb <= FUSED_MEAN_TOL:
+                fail("fused_text_layer's bounds pass a plain version that drops out_b")
+            print(f"kernel fused_text_layer {label}: against the plain version without out_b "
+                  f"(std 0.02) mean {mean_nb:.3e}, max err / tol {worst_nb:.3f}: caught", flush=True)
+    try:
+        with torch.no_grad():
+            ftl.fused_text_layer(x.float(), blk, heads, causal)
+        fail("fused_text_layer took f32 input")
+    except TypeError as exc:
+        print(f"kernel fused_text_layer refuses f32: {exc}")
+
+    N, L, d, heads = fused_checks[0][1]
+    blk = ftl.with_kernel_layout(text_block(gen, d))
+    x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+    causal = mask("causal", 1, L)[0, 0]
+    with torch.no_grad():
+        fused_ms = time_ms(lambda: ftl.fused_text_layer(x, blk, heads, causal), 30)
+        fused_plain_ms = time_ms(lambda: ftl.fused_text_layer_reference(x, blk, heads, causal), 10)
+    # each input read once (x, the weights, the mask), the output written once;
+    # FLOPs: the four projections (12 d^2 MACs a row) and the two attention products
+    n_weights = 12 * d * d + 13 * d
+    n_bytes = 2 * (2 * N * L * d + n_weights) + 4 * L * L
+    n_flops = 2 * N * L * 12 * d * d + 4 * N * heads * L * L * (d // heads)
+    fused_bound_ms, fused_bound_by = bound(n_bytes, n_flops, bw, peak)
+    print(f"time fused_text_layer ({N},{L},{d}) {heads} heads bf16 on {smi}: kernel "
+          f"{fused_ms:.4f} ms, plain {fused_plain_ms:.4f} ms, library none (no single PyTorch "
+          f"call computes a pre-LN block with QuickGELU and these roundings), bound "
+          f"{fused_bound_ms:.4f} ms by {fused_bound_by} ({n_bytes / 1e6:.2f} MB, "
+          f"{n_flops / 1e9:.2f} GFLOP)", flush=True)
+
     # ---- the shared backbone and data --------------------------------------
     classnames = [f"object category {i}" for i in range(N_CLS)]
     rng = np.random.RandomState(2)
@@ -397,7 +602,7 @@ def main() -> int:
                        torch.bfloat16)
     torch.cuda.synchronize()
     print(f"backbone: ViT-B/16 drawn from seed 1 in bf16 in {time.perf_counter() - t0:.2f} s, "
-          "shared by phases 4-6", flush=True)
+          "shared by phases 4-7", flush=True)
     n_layers = ARCHS["ViT-B/16"].vision_layers
     text_layers = ARCHS["ViT-B/16"].text_layers
     rect_launches, masked_launches = {}, {}
@@ -503,7 +708,43 @@ def main() -> int:
     if not ok:
         fail("ZeroshotCLIP2 text features disagree with the plain-attention run")
 
-    # ---- 7. cuBLAS reduced-precision bf16 reduction, off and on -------------
+    # ---- 7. CoCoOp ViT-B/16 bf16 eval through the trainer -------------------
+    ra.launches = ma.launches = ftl.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cocoop = cocoop_mod.CoCoOp(classnames, n_ctx=4, backbone="ViT-B/16", prec="fp16", seed=1,
+                               clip_params=clip)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    logits, batch_s = run_batches(cocoop.eval_step, batches)
+    chunk = cocoop_mod.eval_chunk(EVAL_BATCH)
+    per_batch = text_layers * (EVAL_BATCH // chunk)
+    fused_launches = {"CoCoOp eval": check_launches("CoCoOp eval", ftl, per_batch * N_BATCHES)}
+    rect_launches["CoCoOp eval"] = check_launches("CoCoOp eval", ra, n_layers * N_BATCHES)
+    check_launches("CoCoOp eval", ma, 0)
+    print(f"CoCoOp launches: fused_text_layer {ftl.launches} = {text_layers} layers x "
+          f"{EVAL_BATCH // chunk} chunks of {chunk} images x {N_BATCHES} (towers of "
+          f"({chunk * N_CLS}, {cocoop.task.text_len}, {ARCHS['ViT-B/16'].text_width})), "
+          f"rect {ra.launches} = {n_layers} x {N_BATCHES}, masked {ma.launches}", flush=True)
+    label = f"slice CoCoOp ViT-B/16 bf16 N_CTX=4 n_cls={N_CLS}"
+    cocoop_checks(f"{label} seed 1", cocoop, clip, batches, logits)
+    report_rate("CoCoOp", setup_s, batch_s, smi)
+    profile_eval_step(cocoop.eval_step, batches[-1], smi, "CoCoOp")
+    del cocoop
+    # the same checks on a second draw of everything random: the backbone,
+    # the context and meta-net, the images
+    clip2 = cast_params(init_clip(torch.Generator(device="cuda").manual_seed(2),
+                                  ARCHS["ViT-B/16"]), torch.bfloat16)
+    rng2 = np.random.RandomState(3)
+    batches2 = [rng2.randint(0, 256, (EVAL_BATCH, 224, 224, 3)).astype(np.uint8)
+                for _ in range(N_BATCHES)]
+    cocoop2 = cocoop_mod.CoCoOp(classnames, n_ctx=4, backbone="ViT-B/16", prec="fp16", seed=2,
+                                clip_params=clip2)
+    logits2, _ = run_batches(cocoop2.eval_step, batches2)
+    cocoop_checks(f"{label} seed 2", cocoop2, clip2, batches2, logits2)
+    del cocoop2, clip2, batches2
+
+    # ---- 8. cuBLAS reduced-precision bf16 reduction, off and on -------------
     rates = {False: [], True: []}
     outs = {}
     for flag in (False, True, True, False):
@@ -547,6 +788,19 @@ def main() -> int:
         "bound_ms": masked_bound_ms,
         "bound_by": masked_bound_by,
         "library_ms": masked_library_ms,
+    }, {
+        "name": "fused_text_layer",
+        "route": "cuda",
+        "source": "rpo_tpu_torch/ops/csrc/fused_text_layer.cu",
+        "replaces": "rpo_tpu/ops/fused_text_layer.py:215",
+        "launches": sum(fused_launches.values()),
+        "launches_by_path": fused_launches,
+        "max_abs_err": fused_err,
+        "ms": fused_ms,
+        "plain_ms": fused_plain_ms,
+        "bound_ms": fused_bound_ms,
+        "bound_by": fused_bound_by,
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -106,22 +106,25 @@ class CLIPMethodTrainer:
 
     # -- checkpoint state ---------------------------------------------------
     def set_ckpt_state(self, name: str, state) -> None:
-        """Install checkpointed trainable state (a flat dict of arrays or
-        tensors, copied to float32 on the device), validated against the
-        method's own: Dassl's strict=False semantics — stale / unexpected
-        keys are dropped with a warning, missing keys keep their current
-        init, but a SHAPE mismatch fails here at the load site."""
+        """Install checkpointed trainable state (a dict of arrays or tensors,
+        or of such dicts, as CoCoOp's ``meta_net``; each leaf copied to
+        float32 on the device), validated against the method's own:
+        Dassl's strict=False semantics — stale / unexpected top-level keys
+        are dropped with a warning, missing ones keep their current init,
+        but a SHAPE mismatch of any leaf fails here at the load site."""
         state = dict(state)  # never mutate the caller's dict
         for stale in ("token_prefix", "token_suffix"):
             state.pop(stale, None)
 
-        def as_f32(a) -> torch.Tensor:
+        def as_f32(a):
+            if isinstance(a, dict):
+                return {k: as_f32(v) for k, v in a.items()}
             if isinstance(a, torch.Tensor):
                 return a.detach().to(self.device, torch.float32, copy=True)
             return torch.from_numpy(np.array(a, dtype=np.float32)).to(self.device)
 
         if self.params is None:
-            self.params = {k: as_f32(a) for k, a in state.items()}
+            self.params = as_f32(state)
             self._text_f_cache = None
             return
         unexpected = sorted(k for k in state if k not in self.params)
@@ -132,18 +135,24 @@ class CLIPMethodTrainer:
             print(f"WARNING: checkpoint for {name} missing keys {missing}; "
                   "keeping their current values")
 
-        merged = {}
-        for key, old in self.params.items():
-            if key not in state:
-                merged[key] = old
-                continue
-            new = as_f32(state[key])
-            if tuple(new.shape) != tuple(old.shape):
+        def install(key, old, new):
+            """``new`` in float32 on the device, in ``old``'s structure and
+            shapes (``key`` is the top-level key, for the message)."""
+            if isinstance(old, dict):
+                if not isinstance(new, dict) or set(new) != set(old):
+                    got = sorted(new) if isinstance(new, dict) else type(new).__name__
+                    raise ValueError(f"checkpoint structure mismatch for {name}.{key}: got "
+                                     f"{got}, expected {sorted(old)}")
+                return {k: install(key, old[k], new[k]) for k in old}
+            arr = as_f32(new)
+            if tuple(arr.shape) != tuple(old.shape):
                 raise ValueError(
                     f"checkpoint shape mismatch for {name}.{key}: got "
-                    f"{tuple(new.shape)}, expected {tuple(old.shape)} — "
+                    f"{tuple(arr.shape)}, expected {tuple(old.shape)} — "
                     "is this a checkpoint from a different method/backbone?"
                 )
-            merged[key] = new
-        self.params = merged
+            return arr
+
+        self.params = {k: install(k, old, state[k]) if k in state else old
+                       for k, old in self.params.items()}
         self._text_f_cache = None

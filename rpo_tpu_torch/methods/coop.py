@@ -19,7 +19,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..models.clip.layers import layer_norm
+from ..models.clip.layers import TextLayer, layer_norm
 from ..models.clip.model import CLIPConfig, causal_mask, encode_image, text_transformer_run
 from ..ops.attention import Attention, MaskedAttention
 from ..ops.masked_attention import masked_attention
@@ -179,16 +179,18 @@ def text_encoder(
     prompts_emb: torch.Tensor,
     tokens: torch.Tensor,
     masked_attn: MaskedAttention = masked_attention,
+    text_layer: Optional[TextLayer] = None,
 ) -> torch.Tensor:
     """Causal text tower on pre-embedded prompts, then the EOT gather and
     the f32-accumulated projection.  Runs at ``prompts_emb``'s length
     (exact, see ``CoOpTask.text_len``); the shared causal bias goes to
-    ``masked_attn``."""
+    ``masked_attn``, or every whole block to ``text_layer`` where one is
+    given (see ``layers.transformer``)."""
     t = clip_params["text"]
     L = prompts_emb.shape[1]
     x = prompts_emb + t["positional_embedding"][:L].to(prompts_emb.dtype)
     bias = causal_mask(L, x.device)[None, None]
-    x = text_transformer_run(t, cfg, x, bias, masked_attn=masked_attn)
+    x = text_transformer_run(t, cfg, x, bias, masked_attn=masked_attn, text_layer=text_layer)
     x = layer_norm(x, t["ln_final"])
     eot_pos = tokens.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot_pos]

@@ -5,8 +5,10 @@ of each JAX leaf) into the port's nested dict of tensors under the same
 keys.  It copies: no tensor aliases the caller's buffers.  bf16 leaves
 arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
 rejects; they go through float32, which holds every bf16 value exactly,
-and back to bfloat16.  The RPO prompt pytree (``text_prompt``,
-``img_prompt``, float32) goes through the same function.
+and back to bfloat16.  The method pytrees go through the same function:
+RPO's (``text_prompt``, ``img_prompt``), CoOp's (``ctx``) and CoCoOp's
+nested one (``ctx``, ``meta_net``: ``w1``, ``b1``, ``w2``, ``b2``), all
+float32.
 """
 from __future__ import annotations
 

@@ -14,7 +14,7 @@ JAX pytree; the ``lax.scan`` over them is a Python loop over the index.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,8 +27,12 @@ from ...ops.attention import (
     multihead_attention_kv,
     multihead_attention_rect,
 )
+from ...ops.fused_text_layer import fused_text_tower
 from ...ops.masked_attention import masked_attention
 from ...ops.rect_attention import rect_attention
+
+# (x, one layer's params, n_heads, (L, L) mask) -> x, a whole residual block
+TextLayer = Callable[[torch.Tensor, dict, int, torch.Tensor], torch.Tensor]
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -138,10 +142,28 @@ def transformer(
     bias: Optional[torch.Tensor] = None,
     rect_attn: Attention = rect_attention,
     masked_attn: MaskedAttention = masked_attention,
+    text_layer: Optional[TextLayer] = None,
 ) -> torch.Tensor:
     """Run a stack of residual blocks over params with a leading
     [n_layers] axis.  ``rect_attn`` and ``masked_attn`` are the attention
-    functions every block uses (the kernels by default)."""
+    functions every block uses (the kernels by default).
+
+    ``text_layer`` (``fused_text_layer`` or its plain version) runs each
+    whole block instead, through ``fused_text_tower``, where the guard of
+    ``rpo_tpu/models/clip/layers.py:150-168`` holds: bf16 (N, L, d)
+    activations, a shared (1, 1, L, L) bias and d divisible by the head
+    count.  Otherwise, and with the default None, the per-block loop runs."""
+    if (
+        text_layer is not None
+        and bias is not None
+        and x.dim() == 3
+        and x.dtype == torch.bfloat16
+        and bias.dim() == 4
+        and tuple(bias.shape[:2]) == (1, 1)
+        and bias.shape[2] == bias.shape[3] == x.shape[1]
+        and x.shape[2] % n_heads == 0
+    ):
+        return fused_text_tower(x, stacked_blocks, n_heads, bias[0, 0], text_layer)
     for i in range(n_layers(stacked_blocks)):
         x = residual_block(
             x, layer_params(stacked_blocks, i), n_heads, bias, rect_attn, masked_attn

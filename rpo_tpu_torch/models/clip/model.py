@@ -17,7 +17,7 @@ import torch
 from ...ops.attention import NEG_INF, Attention, MaskedAttention
 from ...ops.masked_attention import masked_attention
 from ...ops.rect_attention import rect_attention
-from .layers import layer_norm, transformer
+from .layers import TextLayer, layer_norm, transformer
 
 Params = Dict[str, Any]
 
@@ -307,8 +307,11 @@ def text_transformer_run(
     bias: Optional[torch.Tensor] = None,
     rect_attn: Attention = rect_attention,
     masked_attn: MaskedAttention = masked_attention,
+    text_layer: Optional[TextLayer] = None,
 ) -> torch.Tensor:
-    return transformer(x, params["blocks"], cfg.text_heads, bias, rect_attn, masked_attn)
+    """The text transformer; ``text_layer`` as in ``layers.transformer``."""
+    return transformer(x, params["blocks"], cfg.text_heads, bias, rect_attn, masked_attn,
+                       text_layer)
 
 
 def encode_text(

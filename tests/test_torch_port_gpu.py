@@ -166,3 +166,77 @@ def test_backward_through_the_masked_kernel_on_gpu():
         grads.append([t.grad for t in leaves])
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def _text_block(gen, d):
+    """One text layer's bf16 params on the card: CLIP's init scales, with
+    nonzero biases and LayerNorm parameters other than (1, 0)."""
+    def normal(*shape, std):
+        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    return {
+        "ln_1": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
+        "attn": {"qkv_w": normal(d, 3 * d, std=d ** -0.5), "qkv_b": normal(3 * d, std=0.02),
+                 "out_w": normal(d, d, std=d ** -0.5 / 5), "out_b": normal(d, std=0.02)},
+        "ln_2": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
+        "mlp": {"fc_w": normal(d, 4 * d, std=(2 * d) ** -0.5), "fc_b": normal(4 * d, std=0.02),
+                "proj_w": normal(4 * d, d, std=d ** -0.5 / 5), "proj_b": normal(d, std=0.02)},
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "N,L,d,heads",
+    [
+        (510, 16, 512, 8),  # the CoCoOp eval chunk
+        (13, 11, 64, 2),  # ragged N, L padded to 16 by the tower, head dim 32
+        (4, 80, 512, 8),
+        (3, 77, 768, 12),  # L padded to 80; the MLP in column passes
+    ],
+)
+def test_fused_text_layer_matches_plain_version_on_gpu(N, L, d, heads):
+    """Through ``fused_text_tower`` with a one-layer stack, so that L = 11
+    and 77 take the tower's padding, with the weights laid out at each
+    launch and once beforehand (``with_kernel_layout``): the same output.
+    Tolerance, each element: 2e-2 of max(|plain|, 1) (a bf16 rounding flip
+    from summation order is at most 2^-7 of the element); the mean: 1e-4
+    (0 to 3.7e-5 on the H100; a dropped bias of std 0.02 gives ~1.6e-2)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.ops import fused_text_layer as ftl
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    blocks = {k: {n: t[None] for n, t in v.items()} for k, v in _text_block(gen, d).items()}
+    x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+    mask = causal_mask(L, "cuda")
+    before = ftl.launches
+    with torch.no_grad():
+        got = ftl.fused_text_tower(x, blocks, heads, mask)
+        torch.cuda.synchronize()
+        assert ftl.launches == before + 1
+        assert torch.equal(got, ftl.fused_text_tower(x, ftl.with_kernel_layout(blocks), heads,
+                                                     mask))
+        want = ftl.fused_text_tower(x, blocks, heads, mask, layer=ftl.fused_text_layer_reference)
+    assert tuple(got.shape) == (N, L, d) and bool(torch.isfinite(got).all())
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= 2e-2 * want.float().abs().clamp(min=1.0)).all())
+    assert diff.mean().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_fused_text_layer_raises_on_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.ops import fused_text_layer as ftl
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    blk = _text_block(gen, 256)
+    x = torch.zeros(2, 16, 256, device="cuda", dtype=torch.bfloat16)
+    mask = causal_mask(16, "cuda")
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="bfloat16"):
+            ftl.fused_text_layer(x.float(), blk, 4, mask)
+        with pytest.raises(ValueError, match="head dim"):
+            ftl.fused_text_layer(x, blk, 2, mask)  # head dim 128
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ftl.fused_text_layer(x.clone().requires_grad_(True), blk, 4, mask)

@@ -36,6 +36,8 @@ def test_importing_the_port_loads_neither_jax_nor_rpo_tpu():
     )
     assert {
         "rpo_tpu_torch.ops.masked_attention",
+        "rpo_tpu_torch.ops.fused_text_layer",
+        "rpo_tpu_torch.methods.cocoop",
         "rpo_tpu_torch.methods.coop",  # the CoOp trainer lives beside its functions
         "rpo_tpu_torch.methods.zsclip",
         "rpo_tpu_torch.methods.templates",
@@ -56,6 +58,7 @@ def test_entry_points_raise_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card")
     from rpo_tpu_torch.device import resolve_device
+    from rpo_tpu_torch.methods.cocoop import CoCoOp
     from rpo_tpu_torch.methods.coop import CoOp
     from rpo_tpu_torch.methods.rpo_trainer import RPO
     from rpo_tpu_torch.methods.zsclip import ZeroshotCLIP, ZeroshotCLIP2
@@ -64,10 +67,11 @@ def test_entry_points_raise_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RPO(["cat", "dog"], K=2, backbone="TINY")
-    for cls in (CoOp, ZeroshotCLIP, ZeroshotCLIP2):
+    for cls in (CoOp, CoCoOp, ZeroshotCLIP, ZeroshotCLIP2):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(["cat", "dog"], backbone="TINY")
     assert resolve_device("cpu") == torch.device("cpu")
+    CoCoOp(["cat", "dog"], backbone="TINY", device="cpu")
 
 
 def test_no_fallback_around_the_kernels():
