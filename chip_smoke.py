@@ -11,7 +11,9 @@ Phases, one line each (any failure exits non-zero):
   2. build    every CUDA source under rpo_tpu_torch/ops/csrc with nvcc;
   3. kernels  each kernel against its plain PyTorch version on the card
               at the main paths' shapes, with its time, the plain
-              version's, one PyTorch library call's and the card's bound;
+              version's, one PyTorch library call's and the card's bound
+              (for the fused rect halves, the unfused port path's time
+              instead of a library call's);
   4. RPO      RPO evaluation of ViT-B/16 in bf16 (K=24, 51 classes) on
               three batches of 100 seeded uint8 images, through the
               trainer's entry points; launches counted (12 masked in the
@@ -33,10 +35,15 @@ Phases, one line each (any failure exits non-zero):
               side's and on the vision side's, and each run against an
               f32 witness; the checks again on a second random draw;
   8. flag     CoOp eval images/s with cuBLAS's reduced-precision bf16
-              reduction off and on, in turns.
+              reduction off and on, in turns;
+  9. RPO fused  RPO evaluation as in phase 4, with every vision layer one
+              fused attention-half and one fused MLP-half launch (36 each
+              for three batches, no rect launch, 12 masked in set-up);
+              logits against the same path on the plain halves and
+              against phase 4's logits; a profile.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
-from seed 1 and shared by the three methods.  Imports nothing of JAX or
+from seed 1 and shared by the methods.  Imports nothing of JAX or
 rpo_tpu.
 """
 from __future__ import annotations
@@ -222,6 +229,8 @@ def profile_eval_step(step, images, smi: str, label: str) -> None:
         us = evt.self_device_time_total
         n = evt.key.lower()
         group = ("fused_text_layer kernel" if "fused_text_layer" in n
+                 else "fused_rect_attn_half kernel" if "fused_rect_attn_half" in n
+                 else "fused_mlp_half kernel" if "fused_mlp_half" in n
                  else "masked_attention kernel" if "attention_kernel" in n and "true" in n
                  else "rect_attention kernel" if "attention_kernel" in n
                  else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90"))
@@ -254,11 +263,11 @@ def run_batches(step, batches):
 
 
 def check_logits(label: str, logits, plain, min_agree: Optional[float] = SLICE_ARGMAX_AGREE,
-                 stop: bool = True) -> bool:
-    """Logits finite, (100, 51) each, and close to the plain run's, with
-    argmax agreement >= ``min_agree`` unless it is None (then the agreement
-    is only printed); on a disagreement exits, or with ``stop`` False
-    returns False."""
+                 stop: bool = True, against: str = "plain attention") -> bool:
+    """Logits finite, (100, 51) each, and close to the plain run's (the run
+    named by ``against``), with argmax agreement >= ``min_agree`` unless it
+    is None (then the agreement is only printed); on a disagreement exits,
+    or with ``stop`` False returns False."""
     for out in logits:
         if tuple(out.shape) != (EVAL_BATCH, N_CLS) or not bool(torch.isfinite(out).all()):
             fail(f"{label} logits have shape {tuple(out.shape)} or are not finite")
@@ -270,13 +279,13 @@ def check_logits(label: str, logits, plain, min_agree: Optional[float] = SLICE_A
     margin = (top2[:, 0] - top2[:, 1]).median().item()
     ok = diff <= SLICE_ATOL and (min_agree is None or agree >= min_agree)
     bar = "held to the f32 witness below" if min_agree is None else f">= {min_agree}"
-    print(f"{label}: logits {tuple(logits[0].shape)} x {len(logits)} finite; vs plain attention "
+    print(f"{label}: logits {tuple(logits[0].shape)} x {len(logits)} finite; vs {against} "
           f"max_abs_err {diff:.3e} (tol {SLICE_ATOL}), argmax agree {agree:.4f} ({flips} of "
           f"{mine.shape[0]} flip; {bar}) {'ok' if ok else 'FAIL'}; logit range "
           f"[{mine.min().item():.3f}, {mine.max().item():.3f}], median top-2 margin {margin:.4f}",
           flush=True)
     if not ok and stop:
-        fail(f"{label} logits disagree with the plain-attention run")
+        fail(f"{label} logits disagree with the run on {against}")
     return ok
 
 
@@ -361,11 +370,15 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from rpo_tpu_torch.methods import cocoop as cocoop_mod
     from rpo_tpu_torch.methods import coop as coop_mod
+    from rpo_tpu_torch.methods import rpo as rpo_core
     from rpo_tpu_torch.methods import zsclip
     from rpo_tpu_torch.methods.rpo_trainer import RPO
+    from rpo_tpu_torch.models.clip.layers import layer_norm, mlp
     from rpo_tpu_torch.models.clip.model import ARCHS, cast_params, init_clip
     from rpo_tpu_torch.ops import _build
+    from rpo_tpu_torch.ops import fused_rect_layer as frl
     from rpo_tpu_torch.ops import fused_text_layer as ftl
+    from rpo_tpu_torch.ops.attention import multihead_attention_rect
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
 
@@ -591,6 +604,122 @@ def main() -> int:
           f"{fused_bound_ms:.4f} ms by {fused_bound_by} ({n_bytes / 1e6:.2f} MB, "
           f"{n_flops / 1e9:.2f} GFLOP)", flush=True)
 
+    # the fused rect halves: each against its plain version, element by
+    # element and in the mean, at the RPO eval layer, the square tower
+    # (n_kv = L) and a ragged small shape; one layer's params with nonzero
+    # biases and LayerNorm parameters other than (1, 0)
+    rect_checks = [
+        ("RPO eval layer", (100, 221, 768, 12, 197)),
+        ("square tower, n_kv = L", (100, 197, 768, 12, 197)),
+        ("ragged small", (3, 37, 256, 4, 29)),
+    ]
+    rect_half_err = {}
+    for label, (B, L, d, heads, n_kv) in rect_checks:
+        raw = text_block(gen, d)
+        blk = ftl.with_kernel_layout(raw)
+        x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            halves = {
+                "fused_rect_attn_half": (
+                    frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], heads, n_kv,
+                                             kernel=blk["kernel"]),
+                    frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"], heads, n_kv),
+                    frl.fused_rect_attn_half(x, raw["ln_1"], raw["attn"], heads, n_kv)),
+                "fused_mlp_half": (
+                    frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"], kernel=blk["kernel"]),
+                    frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"]),
+                    frl.fused_mlp_half(x, raw["ln_2"], raw["mlp"])),
+            }
+        torch.cuda.synchronize()
+        for what, (out, ref, per_launch) in halves.items():
+            err, mean, worst = fused_errors(out, ref)
+            same = torch.equal(out, per_launch)
+            ok = worst <= 1 and mean <= FUSED_MEAN_TOL and same and bool(torch.isfinite(out).all())
+            print(f"kernel {what} {label} {(B, L, d)} n_kv {n_kv} {heads} heads bf16: max_abs_err "
+                  f"{err:.3e}, max err / tol {worst:.3f} (tol {BF16_TOL:g} x max(|plain|, 1) "
+                  f"each), mean {mean:.3e} (tol {FUSED_MEAN_TOL:g}); per-launch layout gives the "
+                  f"same output: {same} {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{what} {label}: max err / tol {worst}, mean {mean}, same {same}")
+            rect_half_err.setdefault(what, err)
+        if label == rect_checks[0][0]:
+            # the bounds catch a dropped bias: the plain versions without
+            # out_b and without proj_b
+            no_out_b = {**blk["attn"], "out_b": torch.zeros_like(blk["attn"]["out_b"])}
+            no_proj_b = {**blk["mlp"], "proj_b": torch.zeros_like(blk["mlp"]["proj_b"])}
+            with torch.no_grad():
+                dropped = {
+                    "fused_rect_attn_half without out_b": fused_errors(
+                        halves["fused_rect_attn_half"][0], frl.fused_rect_attn_half_reference(
+                            x, blk["ln_1"], no_out_b, heads, n_kv)),
+                    "fused_mlp_half without proj_b": fused_errors(
+                        halves["fused_mlp_half"][0],
+                        frl.fused_mlp_half_reference(x, blk["ln_2"], no_proj_b)),
+                }
+            for what, (_, mean_nb, worst_nb) in dropped.items():
+                if worst_nb <= 1 and mean_nb <= FUSED_MEAN_TOL:
+                    fail(f"the bounds pass the plain version of {what}")
+                print(f"kernel {what.split()[0]} {label}: against the plain version "
+                      f"{' '.join(what.split()[1:])} (std 0.02) mean {mean_nb:.3e}, max err / tol "
+                      f"{worst_nb:.3f}: caught", flush=True)
+        del halves
+    try:
+        with torch.no_grad():
+            frl.fused_rect_attn_half(x.float(), blk["ln_1"], blk["attn"], heads, n_kv)
+        fail("fused_rect_attn_half took f32 input")
+    except TypeError as exc:
+        print(f"kernel fused_rect_attn_half refuses f32: {exc}")
+    try:
+        frl.fused_mlp_half(x.clone().requires_grad_(True), blk["ln_2"], blk["mlp"])
+        fail("fused_mlp_half ran on an input that requires grad")
+    except RuntimeError as exc:
+        print(f"kernel fused_mlp_half refuses a grad-enabled input: {exc}")
+
+    # timing at the RPO eval layer and the square tower, beside the plain
+    # versions and the unfused port path on the card (layer_norm, the
+    # projections on cuBLAS, the rect kernel, the residual adds), a yardstick
+    # the fused path never calls; no single PyTorch call computes either half
+    rect_times = {}
+    for label, (B, L, d, heads, n_kv) in rect_checks[:2]:
+        blk = ftl.with_kernel_layout(text_block(gen, d))
+        x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+        n_x = 2 * 2 * B * L * d  # x read once, the output written once, bf16
+        attn_w = 2 * (4 * d * d + 6 * d)
+        mlp_w = 2 * (8 * d * d + 7 * d)
+        dh = d // heads
+        attn_flops = (2 * (2 * B * L * d * d + 2 * B * n_kv * d * d)
+                      + 4 * B * heads * L * n_kv * dh)
+        mlp_flops = 16 * B * L * d * d
+        with torch.no_grad():
+            runs = {
+                "fused_rect_attn_half": (
+                    lambda: frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], heads, n_kv,
+                                                     kernel=blk["kernel"]),
+                    lambda: frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"],
+                                                               heads, n_kv),
+                    lambda: x + multihead_attention_rect(layer_norm(x, blk["ln_1"]), blk["attn"],
+                                                         heads, n_kv, ra.rect_attention),
+                    n_x + attn_w, attn_flops),
+                "fused_mlp_half": (
+                    lambda: frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"], kernel=blk["kernel"]),
+                    lambda: frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"]),
+                    lambda: x + mlp(layer_norm(x, blk["ln_2"]), blk["mlp"]),
+                    n_x + mlp_w, mlp_flops),
+            }
+            for what, (kernel_fn, plain_fn, unfused_fn, n_bytes, n_flops) in runs.items():
+                ms = time_ms(kernel_fn, 30)
+                plain_ms = time_ms(plain_fn, 10)
+                unfused_ms = time_ms(unfused_fn, 30)
+                bound_ms, bound_by = bound(n_bytes, n_flops, bw, peak)
+                rect_times.setdefault(what, {})[label] = {
+                    "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by}
+                print(f"time {what} {label} {(B, L, d)} n_kv {n_kv} bf16 on {smi}: kernel "
+                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, unfused {unfused_ms:.4f} ms, "
+                      f"library none, bound {bound_ms:.4f} ms by {bound_by} "
+                      f"({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP)", flush=True)
+        del runs
+
     # ---- the shared backbone and data --------------------------------------
     classnames = [f"object category {i}" for i in range(N_CLS)]
     rng = np.random.RandomState(2)
@@ -626,6 +755,7 @@ def main() -> int:
     check_logits(f"slice RPO ViT-B/16 bf16 K={K} n_cls={N_CLS}", logits, plain)
     report_rate("RPO", setup_s, batch_s, smi)
     profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO")
+    rpo_rect_logits = logits  # phase 9 is held against them
     del rpo, plain
 
     # ---- 5. CoOp ViT-B/16 bf16 eval through the trainer ---------------------
@@ -758,6 +888,42 @@ def main() -> int:
           f"{rates[False][0]:.1f} / {rates[True][0]:.1f} / {rates[True][1]:.1f} / "
           f"{rates[False][1]:.1f} images/s (median of {2 * N_BATCHES} batches each); logits "
           f"moved by up to {moved:.3e} between the settings", flush=True)
+    del coop
+
+    # ---- 9. RPO eval with the fused vision tower ---------------------------
+    frl.attn_half_launches = frl.mlp_half_launches = ra.launches = ma.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rpo = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1,
+              clip_params=clip, vision_layer=frl.fused_rect_residual_block)
+    text_f = rpo.text_features()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    masked_launches["RPO fused set-up"] = check_launches("RPO fused set-up", ma, text_layers)
+    logits, batch_s = run_batches(rpo.eval_step, batches)
+    want = n_layers * N_BATCHES
+    for counter in ("attn_half_launches", "mlp_half_launches"):
+        if getattr(frl, counter) != want:
+            fail(f"RPO fused eval: {counter} is {getattr(frl, counter)}, expected {want}")
+    fused_rect_launches = {"RPO fused eval": frl.attn_half_launches}
+    fused_mlp_launches = {"RPO fused eval": frl.mlp_half_launches}
+    check_launches("RPO fused eval", ra, 0)
+    check_launches("RPO fused eval", ma, text_layers)
+    print(f"RPO fused launches: fused_rect_attn_half {frl.attn_half_launches} = {n_layers} x "
+          f"{N_BATCHES}, fused_mlp_half {frl.mlp_half_launches} = {n_layers} x {N_BATCHES}, rect "
+          f"{ra.launches}, masked {ma.launches} = {text_layers} (set-up text K/V)", flush=True)
+    with torch.no_grad():
+        plain = [rpo_core.rpo_logits(
+            rpo.params, rpo._frozen, rpo.task, rpo._normalize(torch.from_numpy(images).cuda()),
+            text_f=text_f, vision_layer=frl.fused_rect_residual_block_reference)
+            for images in batches]
+    label = f"slice RPO fused ViT-B/16 bf16 K={K} n_cls={N_CLS}"
+    check_logits(label, logits, plain, against="the plain fused halves")
+    check_logits(label, logits, rpo_rect_logits,
+                 against="phase 4's run (rect_residual_block on the rect kernel)")
+    report_rate("RPO fused", setup_s, batch_s, smi)
+    profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO fused")
+    del rpo, plain
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",
@@ -801,7 +967,19 @@ def main() -> int:
         "bound_ms": fused_bound_ms,
         "bound_by": fused_bound_by,
         "library_ms": None,
-    }]}))
+    }] + [{
+        "name": what,
+        "route": "cuda",
+        "source": "rpo_tpu_torch/ops/csrc/fused_rect_layer.cu",
+        "replaces": f"rpo_tpu/ops/fused_rect_layer.py:{line}",
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": rect_half_err[what],
+        **rect_times[what][rect_checks[0][0]],
+        "library_ms": None,
+        "square_197": {**rect_times[what][rect_checks[1][0]], "library_ms": None},
+    } for what, line, by_path in (("fused_rect_attn_half", 185, fused_rect_launches),
+                                  ("fused_mlp_half", 225, fused_mlp_launches))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

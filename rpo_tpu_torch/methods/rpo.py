@@ -10,7 +10,9 @@ The host-side task (tokens, masks) is a copy of the JAX package's.  The
 text side caches each layer's frozen K/V once per task and pushes only
 the K prompt rows per class through the tower; the eval vision side runs
 the rect tower, where every row attends to the frozen rows only (the
-``rect_attention`` kernel).  Training is not ported yet.
+``rect_attention`` kernel in every block, or, given ``vision_layer=
+fused_rect_residual_block``, one attention-half and one MLP-half kernel
+per block).  Training is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.clip.layers import (
+    VisionLayer,
     cross_residual_block,
     layer_norm,
     layer_params,
@@ -265,6 +268,7 @@ def encode_image_with_prompts(
     task: RPOTask,
     images: torch.Tensor,
     rect_attn: Attention = rect_attention,
+    vision_layer: Optional[VisionLayer] = None,
 ) -> torch.Tensor:
     """Vision tower with appended prompts -> prompt features (B, K, embed).
 
@@ -273,7 +277,9 @@ def encode_image_with_prompts(
     visual mask blocks the K prompt columns for every row, so the masked
     K/V are never computed and no (S, S) bias exists.  ``rect_attn``
     lets a caller run the tower on the plain attention instead of the
-    kernel.
+    kernel.  ``vision_layer`` (``fused_rect_residual_block`` or its plain
+    version) runs each whole block instead; None keeps
+    ``rect_residual_block`` on ``rect_attn``.
     """
     cfg = task.cfg
     v = frozen["clip"]["visual"]
@@ -285,9 +291,11 @@ def encode_image_with_prompts(
     x = torch.cat([x, ip], dim=1)  # append prompts
     x = layer_norm(x, v["ln_pre"])
     for i in range(n_layers(v["blocks"])):
-        x = rect_residual_block(
-            x, layer_params(v["blocks"], i), cfg.vision_heads, n_kv, rect_attn
-        )
+        blk = layer_params(v["blocks"], i)
+        if vision_layer is None:
+            x = rect_residual_block(x, blk, cfg.vision_heads, n_kv, rect_attn)
+        else:
+            x = vision_layer(x, blk, cfg.vision_heads, n_kv)
     feats = layer_norm(x[:, -K:, :], v["ln_post"])  # (B, K, d_v)
     return torch.matmul(feats, v["proj"])
 
@@ -299,13 +307,15 @@ def rpo_logits(
     images: torch.Tensor,
     text_f: Optional[torch.Tensor] = None,
     rect_attn: Attention = rect_attention,
+    vision_layer: Optional[VisionLayer] = None,
 ) -> torch.Tensor:
     """(B, n_cls) classification logits: mean over K prompt pairs of the
     scaled cosine similarity.  Pass a precomputed ``text_f`` for
-    evaluation (the text tower runs once per task)."""
+    evaluation (the text tower runs once per task).  ``rect_attn`` and
+    ``vision_layer`` go to ``encode_image_with_prompts``."""
     if text_f is None:
         text_f = encode_text_with_prompts(prompts, frozen, task)
-    img_f = encode_image_with_prompts(prompts, frozen, task, images, rect_attn)
+    img_f = encode_image_with_prompts(prompts, frozen, task, images, rect_attn, vision_layer)
     text_f = text_f.float()
     img_f = img_f.float()
     text_f = text_f / torch.linalg.vector_norm(text_f, dim=-1, keepdim=True)

@@ -6,10 +6,12 @@ features and the eval step on uint8 images.  Training is not ported yet.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
+from ..models.clip.layers import VisionLayer
+from ..ops.fused_text_layer import with_kernel_layout
 from . import rpo as core
 from .base_trainer import CLIPMethodTrainer
 
@@ -22,14 +24,18 @@ class RPO(CLIPMethodTrainer):
         classnames: Sequence[str],
         prompt_template: str = "a photo of a _.",
         K: int = 24,
+        vision_layer: Optional[VisionLayer] = None,
         **kwargs,
     ):
         """``classnames`` and ``prompt_template`` ('_' is the classname
-        slot) make the task; ``kwargs`` go to ``CLIPMethodTrainer``
-        (backbone, prec, seed, device, clip_params)."""
+        slot) make the task; ``vision_layer`` (``fused_rect_residual_block``
+        or its plain version) runs each block of the eval vision tower,
+        None keeps ``rect_residual_block``; ``kwargs`` go to
+        ``CLIPMethodTrainer`` (backbone, prec, seed, device, clip_params)."""
         self.classnames = list(classnames)
         self.prompt_template = prompt_template
         self.K = int(K)
+        self.vision_layer = vision_layer
         super().__init__(**kwargs)
 
     def build_method(self) -> None:
@@ -41,9 +47,16 @@ class RPO(CLIPMethodTrainer):
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.params = core.init_prompts(gen, self.clip_params, self.clip_cfg, self.K)
         self._frozen = core.make_frozen(self.clip_params, self.task)
+        if self.vision_layer is not None:
+            # the vision tower's weight matrices also in the fused kernels'
+            # layout, laid out once here for every eval launch
+            visual = self.clip_params["visual"]
+            self._frozen["clip"] = {**self.clip_params, "visual": {
+                **visual, "blocks": with_kernel_layout(visual["blocks"])}}
 
         task = self.task
         normalize = self._normalize
+        vision_layer = self.vision_layer
 
         def text_features(params, frozen):
             return core.encode_text_with_prompts(params, frozen, task)
@@ -51,7 +64,8 @@ class RPO(CLIPMethodTrainer):
         def eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn):
             # the rect tower reads no bias: masked_attn has nothing to replace
             return core.rpo_logits(
-                params, frozen, task, normalize(images_u8), text_f=text_f, rect_attn=rect_attn
+                params, frozen, task, normalize(images_u8), text_f=text_f, rect_attn=rect_attn,
+                vision_layer=vision_layer,
             )
 
         self._install_steps(text_features, eval_step)

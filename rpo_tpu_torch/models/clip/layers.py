@@ -33,6 +33,8 @@ from ...ops.rect_attention import rect_attention
 
 # (x, one layer's params, n_heads, (L, L) mask) -> x, a whole residual block
 TextLayer = Callable[[torch.Tensor, dict, int, torch.Tensor], torch.Tensor]
+# (x, one layer's params, n_heads, n_kv) -> x, a whole rect residual block
+VisionLayer = Callable[[torch.Tensor, dict, int, int], torch.Tensor]
 
 
 def layer_params(stacked: dict, i: int) -> dict:

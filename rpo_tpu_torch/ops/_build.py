@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``build/rpo_tpu_torch/lib<name>-<hash>.so`` at the repository root
-(``.gitignore`` lists ``build/``), where the hash covers the source and
-the flags, so an edited source is rebuilt.  No PyTorch header is
-included: nvcc takes seconds per source instead of minutes.
+(``.gitignore`` lists ``build/``), where the hash covers the source, every
+header under ``csrc/`` and the flags, so an edited source or header is
+rebuilt.  No PyTorch header is included: nvcc takes seconds per source
+instead of minutes.
 
 A build happens at the first launch of a kernel, never at import.  A
 failed build raises.
@@ -44,8 +45,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    parts = [(CSRC / f"{name}.cu").read_bytes()]
+    parts += [h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(parts) + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 

@@ -57,32 +57,24 @@
 // copied into Y (dead by then) for the out projection.
 // Attention itself is plain f32 FMAs: 0.5% of the work.  No TMA, no wgmma and
 // no shared-memory pipeline yet: a later PR's work.
+// The products (gemm_tiles), the LayerNorm and the MLP half (mlp_passes) are
+// in fused_layer_common.cuh, shared with fused_rect_layer.cu.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (rpo_tpu_torch/ops/_build.py).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_layer_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace fused_layer;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowGroups = 2;                  // warps that share an output column tile
-constexpr int kColWarps = kWarps / kRowGroups;
-constexpr int kTile = 16;            // a 16x16 output tile: two m16n8k16 products
+constexpr int kRowGroups = 2;        // warps that share an output column tile
+constexpr int kHidden = 128;         // MLP hidden columns per chunk
 constexpr int kTargetRows = 64;      // rows per block when L <= 64
 constexpr int kMaxRows = 80;         // one sequence of L <= 80
 constexpr int kMaxRowTiles = kMaxRows / kTile;
 constexpr int kMaxGroupTiles = (kMaxRowTiles + kRowGroups - 1) / kRowGroups;
-constexpr int kMaxWidth = 768;
-constexpr int kHidden = 128;         // MLP hidden columns per chunk
-constexpr int kPadBf16 = 8;          // row padding of bf16 ldmatrix operands
-constexpr int kPadF32 = 4;           // row padding of the f32 accumulator
-constexpr int kDepth = 4;            // B fragments a warp loads before their products
 
 // Error codes beside cudaError_t's (which are >= 0).
 constexpr int kErrShape = -1;
@@ -108,19 +100,15 @@ struct Params {
 };
 
 struct Layout {  // byte offsets into dynamic shared memory
-  int rows, ldy, ldh, ldacc, dc;
+  int rows, ldy, ldh;
   size_t y, q, k, v, s, acc, hid, total;
 };
-
-__host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
 __host__ __device__ inline Layout layout(int seqs, int L, int d, int dh, int passes) {
   Layout o;
   o.rows = round_up(seqs * L, kTile);
   o.ldy = d + kPadBf16;
   o.ldh = dh + 2;  // odd word count: the keys one warp reads fall in distinct banks
-  o.dc = d / passes;
-  o.ldacc = o.dc + kPadF32;
   const size_t R = o.rows;
   o.y = 0;
   const size_t region = o.y + sizeof(bf16) * R * o.ldy;
@@ -130,179 +118,12 @@ __host__ __device__ inline Layout layout(int seqs, int L, int d, int dh, int pas
   o.v = o.k + round_up((int)(sizeof(bf16) * R * o.ldh), 128);
   o.s = o.v + round_up((int)(sizeof(bf16) * R * o.ldh), 128);
   const size_t attn_end = o.s + sizeof(float) * R * L;
-  // MLP phase, over the same bytes
+  // MLP phase, over the same bytes: its f32 accumulator, then a hidden chunk
   o.acc = region;
-  o.hid = o.acc + sizeof(float) * R * o.ldacc;
-  const size_t mlp_end = o.hid + sizeof(bf16) * R * (kHidden + kPadBf16);
+  o.hid = o.acc + sizeof(float) * R * (d / passes + kPadF32);
+  const size_t mlp_end = region + mlp_bytes(o.rows, d, passes, kHidden);
   o.total = attn_end > mlp_end ? attn_end : mlp_end;
   return o;
-}
-
-__device__ __forceinline__ float bf(float x) { return __bfloat162float(__float2bfloat16(x)); }
-__device__ __forceinline__ float f(bf16 x) { return __bfloat162float(x); }
-
-// A fragment of mma.m16n8k16 (16x16 bf16, row-major) from shared memory:
-// lane l gives the address of row l % 16, columns (l / 16) * 8 ...
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const bf16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
-// c += a (16x16) . b (16x8), bf16 inputs, f32 accumulators.
-__device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                            uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// One warp's share of C = A @ B over a block's row tiles, on the tensor cores
-// (mma.sync m16n8k16, f32 accumulators): the warps split the mt row tiles
-// into kRowGroups groups, and each warp of a group takes the output column
-// tiles t = w, w + kColWarps, ... < n_tiles, each 16 wide, for its group's
-// row tiles (so two warps load each B fragment).  A is (mt * 16,
-// K) bf16 row-major at lda in shared memory.  B is a (K, nb * 16) bf16 matrix
-// in device memory in the fragment-major layout the wrapper builds: its 16x16
-// tile (kt, n) is 512 contiguous bytes at (kt * nb + n) * 256 elements, 16 per
-// lane, in the order of that lane's two m16n8k16 B fragments, so each lane
-// loads a k-step's B with one 16-byte load.  Output tile t reads B's column
-// tile col(t).  B is loaded kDepth k-steps ahead of its products, into
-// registers: the loads' latency from L2, not the tensor cores, is what this
-// loop has to hide.  With acc != nullptr the accumulators start from and go
-// back to the f32 matrix acc (ld ld_acc, column tile t at t * 16); otherwise
-// they start at 0 and each lane hands its finished pairs of adjacent columns
-// to epi(row, t, column in the tile, value, value of the next column).
-template <typename Col, typename Epi>
-__device__ __forceinline__ void gemm_tiles(const bf16* A, int lda, const bf16* B, int nb, int K,
-                                           int n_tiles, int mt, Col col, float* acc, int ld_acc,
-                                           Epi epi) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, q = lane % 4;  // the accumulators' row and column pair
-  const int per_group = (mt + kRowGroups - 1) / kRowGroups;
-  const int i0 = warp / kColWarps * per_group;  // this warp's first row tile
-  const int ni = min(per_group, mt - i0);       // and how many
-  if (ni <= 0) return;
-  const bf16* a_lane = A + (size_t)(i0 * kTile + lane % 16) * lda + (lane / 16) * 8;
-  const int nk = K / kTile;
-  const size_t k_stride = (size_t)nb * kTile * kTile / 8;  // uint4s from one k-step to the next
-  for (int t = warp % kColWarps; t < n_tiles; t += kColWarps) {
-    float c[kMaxGroupTiles][2][4];
-#pragma unroll
-    for (int ii = 0; ii < kMaxGroupTiles; ++ii) {
-      const int i = i0 + ii;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (ii < ni && acc != nullptr) {
-          const float* a0 = acc + (size_t)(i * kTile + g) * ld_acc + t * kTile + h * 8 + q * 2;
-          const float2 lo = *reinterpret_cast<const float2*>(a0);
-          const float2 hi = *reinterpret_cast<const float2*>(a0 + 8 * ld_acc);
-          c[ii][h][0] = lo.x; c[ii][h][1] = lo.y; c[ii][h][2] = hi.x; c[ii][h][3] = hi.y;
-        } else {
-          c[ii][h][0] = c[ii][h][1] = c[ii][h][2] = c[ii][h][3] = 0.f;
-        }
-      }
-    }
-    const uint4* b_lane = reinterpret_cast<const uint4*>(B + (size_t)col(t) * kTile * kTile) + lane;
-    uint4 next[kDepth];
-#pragma unroll
-    for (int s = 0; s < kDepth; ++s)
-      if (s < nk) next[s] = __ldg(b_lane + s * k_stride);
-    for (int k = 0; k < nk; k += kDepth) {
-      uint4 cur[kDepth];
-#pragma unroll
-      for (int s = 0; s < kDepth; ++s) cur[s] = next[s];
-#pragma unroll
-      for (int s = 0; s < kDepth; ++s)
-        if (k + kDepth + s < nk) next[s] = __ldg(b_lane + (k + kDepth + s) * k_stride);
-#pragma unroll
-      for (int s = 0; s < kDepth; ++s) {
-        if (k + s < nk) {
-#pragma unroll
-          for (int ii = 0; ii < kMaxGroupTiles; ++ii) {
-            if (ii < ni) {
-              uint32_t a[4];
-              ldmatrix_x4(a, a_lane + (size_t)ii * kTile * lda + (k + s) * kTile);
-              mma_16x8x16(c[ii][0], a, cur[s].x, cur[s].y);
-              mma_16x8x16(c[ii][1], a, cur[s].z, cur[s].w);
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int ii = 0; ii < kMaxGroupTiles; ++ii) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (ii < ni) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = (i0 + ii) * kTile + g + half * 8, cl = h * 8 + q * 2;
-            const float v0 = c[ii][h][2 * half], v1 = c[ii][h][2 * half + 1];
-            if (acc != nullptr)
-              *reinterpret_cast<float2*>(acc + (size_t)r * ld_acc + t * kTile + cl) =
-                  make_float2(v0, v1);
-            else
-              epi(r, t, cl, v0, v1);
-          }
-        }
-      }
-    }
-  }
-}
-
-// LayerNorm of the block's valid rows of src (device memory, row stride d)
-// into Y (bf16, ld ldy); rows past n_valid up to the padded count are zero.
-__device__ void layer_norm_rows(const bf16* src, int n_valid, int rows, int d, const bf16* scale,
-                                const bf16* bias, float eps, bf16* Y, int ldy) {
-  constexpr int kPairs = kMaxWidth / 64;  // bf16 pairs per lane at most
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int pairs = d / 64;               // d is a multiple of 32: d / 2 pairs over 32 lanes
-  const int tail = (d / 2) % 32;          // lanes holding one more pair
-  for (int r = warp; r < rows; r += kWarps) {
-    bf16* y = Y + (size_t)r * ldy;
-    if (r >= n_valid) {
-      for (int c = lane; c < d; c += 32) y[c] = __float2bfloat16(0.f);
-      continue;
-    }
-    const __nv_bfloat162* row = reinterpret_cast<const __nv_bfloat162*>(src + (size_t)r * d);
-    float2 v[kPairs + 1];
-    float sum = 0.f;
-#pragma unroll
-    for (int p = 0; p <= kPairs; ++p) {
-      if (p < pairs || (p == pairs && lane < tail)) {
-        v[p] = __bfloat1622float2(row[p * 32 + lane]);
-        sum += v[p].x + v[p].y;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float mean = sum / d;
-    float sq = 0.f;
-#pragma unroll
-    for (int p = 0; p <= kPairs; ++p) {
-      if (p < pairs || (p == pairs && lane < tail)) {
-        const float a = __fsub_rn(v[p].x, mean), b = __fsub_rn(v[p].y, mean);
-        sq = __fadd_rn(sq, __fmul_rn(a, a));
-        sq = __fadd_rn(sq, __fmul_rn(b, b));
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float rstd = rsqrtf(__fadd_rn(sq / d, eps));
-#pragma unroll
-    for (int p = 0; p <= kPairs; ++p) {
-      if (p < pairs || (p == pairs && lane < tail)) {
-        const int c = 2 * (p * 32 + lane);
-        const float a = __fmul_rn(__fsub_rn(v[p].x, mean), rstd);
-        const float b = __fmul_rn(__fsub_rn(v[p].y, mean), rstd);
-        y[c] = __float2bfloat16(__fadd_rn(__fmul_rn(a, f(scale[c])), f(bias[c])));
-        y[c + 1] = __float2bfloat16(__fadd_rn(__fmul_rn(b, f(scale[c + 1])), f(bias[c + 1])));
-      }
-    }
-  }
 }
 
 __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params p) {
@@ -325,7 +146,7 @@ __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params
   float* S = reinterpret_cast<float*>(smem + lay.s);
   float* ACC = reinterpret_cast<float*>(smem + lay.acc);
   bf16* H = reinterpret_cast<bf16*>(smem + lay.hid);
-  const int ldh = lay.ldh, ldy = lay.ldy, ldhid = kHidden + kPadBf16;
+  const int ldh = lay.ldh, ldy = lay.ldy;
 
   // ---- attention half: x + out_proj(attend(LN1(x))) ----------------------
   layer_norm_rows(x, n_valid, rows, d, p.w.ln1_s, p.w.ln1_b, p.eps, Y, ldy);
@@ -333,7 +154,7 @@ __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params
   const int head_tiles = dh / kTile;
   for (int h = 0; h < p.n_heads; ++h) {
     // q, k, v of head h: 3 * dh / 16 column tiles of qkv_w
-    gemm_tiles(
+    gemm_tiles<kRowGroups, kMaxGroupTiles>(
         Y, ldy, p.w.qkv_w, 3 * d / kTile, d, 3 * head_tiles, mt,
         [&](int t) { return ((t / head_tiles) * d + h * dh) / kTile + t % head_tiles; },
         nullptr, 0, [&](int r, int t, int cl, float v0, float v1) {
@@ -398,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params
   }
   __syncthreads();
   // out projection and the residual add: out = x + (heads @ Wout + b)
-  gemm_tiles(
+  gemm_tiles<kRowGroups, kMaxGroupTiles>(
       Y, ldy, p.w.out_w, d / kTile, d, d / kTile, mt, [](int t) { return t; }, nullptr, 0,
       [&](int r, int t, int cl, float v0, float v1) {
         if (r >= n_valid) return;
@@ -413,44 +234,9 @@ __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params
   // ---- MLP half: x + proj(QuickGELU(fc(LN2(x)))) -------------------------
   layer_norm_rows(out, n_valid, rows, d, p.w.ln2_s, p.w.ln2_b, p.eps, Y, ldy);
   __syncthreads();
-  const int dc = lay.dc, ldacc = lay.ldacc;
-  for (int pass = 0; pass < p.passes; ++pass) {
-    const int c_out = pass * dc;
-    for (int idx = tid; idx < rows * dc; idx += kThreads)
-      ACC[(idx / dc) * ldacc + idx % dc] = 0.f;
-    for (int chunk = 0; chunk < 4 * d; chunk += kHidden) {
-      __syncthreads();  // H is free (and ACC zeroed) before it is written
-      gemm_tiles(
-          Y, ldy, p.w.fc_w, 4 * d / kTile, d, kHidden / kTile, mt,
-          [&](int t) { return chunk / kTile + t; }, nullptr, 0,
-          [&](int r, int t, int cl, float v0, float v1) {
-            const int c = t * kTile + cl;
-            const float v[2] = {v0, v1};
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float hv = bf(bf(v[e]) + f(p.w.fc_b[chunk + c + e]));
-              const float t1 = bf(1.703125f * hv);  // 1.702 in bf16
-              const float ex = bf(expf(-t1));
-              const float den = bf(1.f + ex);
-              const float sig = bf(1.f / den);
-              H[r * ldhid + c + e] = __float2bfloat16(hv * sig);
-            }
-          });
-      __syncthreads();
-      gemm_tiles(
-          H, ldhid, p.w.proj_w + (size_t)chunk * d, d / kTile, kHidden, dc / kTile, mt,
-          [&](int t) { return c_out / kTile + t; }, ACC, ldacc,
-          [](int, int, int, float, float) {});
-    }
-    __syncthreads();
-    for (int idx = tid; idx < n_valid * dc; idx += kThreads) {
-      const int r = idx / dc, c = idx % dc;
-      const float o = bf(bf(ACC[r * ldacc + c]) + f(p.w.proj_b[c_out + c]));
-      bf16* dst = out + (size_t)r * d + c_out + c;
-      *dst = __float2bfloat16(f(*dst) + o);
-    }
-    __syncthreads();
-  }
+  mlp_passes<kRowGroups, kRowGroups, kMaxRowTiles, kHidden>(
+      Y, ldy, rows, n_valid, d, p.passes, p.w.fc_w, p.w.fc_b, p.w.proj_w, p.w.proj_b, ACC, H, out,
+      out);
 }
 
 // The least MLP pass count that fits, at the most sequences per block that

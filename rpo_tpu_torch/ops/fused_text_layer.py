@@ -33,6 +33,7 @@ version also runs f32 (for the CPU tests).
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -52,10 +53,48 @@ _WEIGHTS = (("ln_1", "scale"), ("ln_1", "bias"), ("attn", "qkv_w"), ("attn", "qk
 _MATRICES = (("attn", "qkv_w"), ("attn", "out_w"), ("mlp", "fc_w"), ("mlp", "proj_w"))
 
 
-def _refuse_grad(x: torch.Tensor, blk: dict) -> None:
+def _refuse_grad(x: torch.Tensor, blk: dict, weights=_WEIGHTS,
+                 what: str = "fused_text_layer") -> None:
     if torch.is_grad_enabled() and (x.requires_grad or any(
-            blk[a][b].requires_grad for a, b in _WEIGHTS)):
-        raise RuntimeError("fused_text_layer is forward-only: call it under torch.no_grad()")
+            blk[a][b].requires_grad for a, b in weights)):
+        raise RuntimeError(f"{what} is forward-only: call it under torch.no_grad()")
+
+
+def ln_f32(x32: torch.Tensor, p: dict, dt: torch.dtype, eps: float) -> torch.Tensor:
+    """The kernels' LayerNorm of f32 rows: two-pass, the scale and bias
+    first cast to the activation dtype ``dt``; f32 out (callers round)."""
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = ((x32 - mean) * (x32 - mean)).mean(dim=-1, keepdim=True)
+    normed = (x32 - mean) * torch.rsqrt(var + eps)
+    return normed * p["scale"].to(dt).float() + p["bias"].to(dt).float()
+
+
+def proj(y: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """y @ w rounded to y's dtype, then + b in that dtype (two roundings).
+    A bf16 matmul accumulates in f32 and rounds once (cuBLAS on the card,
+    as in layers.py; tests/test_torch_port_layers.py checks the CPU)."""
+    return torch.matmul(y, w.to(y.dtype)) + b.to(y.dtype)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-head f32 scores times dh^-1/2 (plus the f32 mask), softmax
+    normalised before the cast to v's dtype, p . v accumulated in f32 and
+    rounded.  q (..., Lq, dh), k and v (..., Lk, dh)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    if mask is not None:
+        s = s + mask.float()
+    s = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s)
+    p = (e / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+    return torch.matmul(p.float(), v.float()).to(v.dtype)
+
+
+def quick_gelu_rounded(h: torch.Tensor) -> torch.Tensor:
+    """QuickGELU in h's dtype, rounded after every op as the TPU bodies
+    spell it: 1.702 * h, exp(-t), 1 + e, 1 / (1 + e), h * sigmoid."""
+    one = torch.ones((), dtype=h.dtype)
+    return h * (one / (one + torch.exp(-(torch.tensor(1.702, dtype=h.dtype) * h))))
 
 
 def fused_text_layer_reference(x: torch.Tensor, blk: dict, n_heads: int, mask: torch.Tensor,
@@ -66,34 +105,17 @@ def fused_text_layer_reference(x: torch.Tensor, blk: dict, n_heads: int, mask: t
     dh = d // n_heads
     a, m = blk["attn"], blk["mlp"]
 
-    def ln(x32, p):
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = ((x32 - mean) * (x32 - mean)).mean(dim=-1, keepdim=True)
-        normed = (x32 - mean) * torch.rsqrt(var + eps)
-        return normed * p["scale"].to(dt).float() + p["bias"].to(dt).float()
-
-    def proj(y, w, b):
-        # a bf16 matmul accumulates in f32 and rounds once (cuBLAS on the
-        # card, as in layers.py; tests/test_torch_port_layers.py checks the CPU)
-        return torch.matmul(y, w.to(dt)) + b.to(dt)
-
     def heads(t):
         return t.view(N, L, n_heads, dh).permute(0, 2, 1, 3)
 
-    y = ln(x.float(), blk["ln_1"]).to(dt)
+    y = ln_f32(x.float(), blk["ln_1"], dt, eps).to(dt)
     w, b = a["qkv_w"], a["qkv_b"]
     q, k, v = (heads(proj(y, w[:, i * d:(i + 1) * d], b[i * d:(i + 1) * d])) for i in range(3))
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * dh ** -0.5 + mask.float()
-    s = s - s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s)
-    p = (e / e.sum(dim=-1, keepdim=True)).to(dt)
-    o = torch.matmul(p.float(), v.float()).to(dt)
+    o = attend(q, k, v, mask)
     x = x + proj(o.permute(0, 2, 1, 3).reshape(N, L, d), a["out_w"], a["out_b"])
 
-    z = ln(x.float(), blk["ln_2"]).to(dt)
-    h = proj(z, m["fc_w"], m["fc_b"])
-    one = torch.ones((), dtype=dt)
-    h = h * (one / (one + torch.exp(-(torch.tensor(1.702, dtype=dt) * h))))
+    z = ln_f32(x.float(), blk["ln_2"], dt, eps).to(dt)
+    h = quick_gelu_rounded(proj(z, m["fc_w"], m["fc_b"]))
     return x + proj(h, m["proj_w"], m["proj_b"])
 
 
@@ -159,21 +181,23 @@ def with_kernel_layout(blocks: dict) -> dict:
     """``blocks`` (one layer's params, or a stack of them with a leading
     layer axis) plus, under ``"kernel"``, its four weight matrices in the
     kernel's layout, in bf16.  Made once where frozen weights are installed
-    (``CoCoOp.build_method``), it spares every launch the layout pass; a
+    (``CoCoOp.build_method``; ``RPO.build_method`` for the fused vision
+    tower), it spares every launch the layout pass; a
     block without it is laid out at each launch.  The copies do not follow
     later in-place updates of the weights."""
     return {**blocks, "kernel": {b: _fragment_major(blocks[a][b].to(torch.bfloat16))
                                  for a, b in _MATRICES}}
 
 
-def _kernel_matrices(blk: dict) -> dict:
-    """The four weight matrices of one layer in the kernel's layout, by
-    name: those of ``with_kernel_layout`` where ``blk`` carries them,
-    checked against the weights' shapes and device, else made now."""
+def _kernel_matrices(blk: dict, matrices=_MATRICES) -> dict:
+    """The named weight matrices of one layer (all four by default) in the
+    kernel's layout, by name: those of ``with_kernel_layout`` where ``blk``
+    carries them (the named ones checked against the weights' shapes and
+    device), else made now."""
     made = blk.get("kernel")
     if made is None:
-        return {b: _fragment_major(blk[a][b].to(torch.bfloat16)) for a, b in _MATRICES}
-    for a, b in _MATRICES:
+        return {b: _fragment_major(blk[a][b].to(torch.bfloat16)) for a, b in matrices}
+    for a, b in matrices:
         K, N = blk[a][b].shape
         t = made[b]
         if (tuple(t.shape) != (K // 16, N // 16, 256) or t.dtype != torch.bfloat16

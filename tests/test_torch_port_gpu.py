@@ -240,3 +240,95 @@ def test_fused_text_layer_raises_on_what_it_does_not_take():
             ftl.fused_text_layer(x, blk, 2, mask)  # head dim 128
     with pytest.raises(RuntimeError, match="forward-only"):
         ftl.fused_text_layer(x.clone().requires_grad_(True), blk, 4, mask)
+
+
+def _fused_errors(got, want):
+    """(largest error over its element's tolerance 2e-2 x max(|plain|, 1),
+    mean abs error) of a fused kernel against its plain version."""
+    diff = (got.float() - want.float()).abs()
+    return (diff / (2e-2 * want.float().abs().clamp(min=1.0))).max().item(), diff.mean().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "B,L,d,heads,n_kv",
+    [
+        (100, 221, 768, 12, 197),  # the RPO eval vision layer
+        (100, 197, 768, 12, 197),  # n_kv = L: the square tower
+        (3, 37, 256, 4, 29),  # ragged: rows not a multiple of 16 or 64
+    ],
+)
+def test_fused_rect_halves_match_plain_versions_on_gpu(B, L, d, heads, n_kv):
+    """Each half against its plain version, element by element (2e-2 of
+    max(|plain|, 1): a bf16 rounding flip from summation order is at most
+    2^-7 of the element) and in the mean (1e-4; a dropped bias of std 0.02
+    moves it by ~1.6e-2); one launch each; the weights laid out at the
+    launch and once beforehand give the same output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.ops import fused_rect_layer as frl
+    from rpo_tpu_torch.ops.fused_text_layer import with_kernel_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    blk = with_kernel_layout(_text_block(gen, d))
+    x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+    attn0, mlp0 = frl.attn_half_launches, frl.mlp_half_launches
+    with torch.no_grad():
+        a = frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], heads, n_kv, kernel=blk["kernel"])
+        m = frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"], kernel=blk["kernel"])
+        torch.cuda.synchronize()
+        assert (frl.attn_half_launches, frl.mlp_half_launches) == (attn0 + 1, mlp0 + 1)
+        assert torch.equal(a, frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], heads, n_kv))
+        assert torch.equal(m, frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"]))
+        a_ref = frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"], heads, n_kv)
+        m_ref = frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"])
+    for got, want in ((a, a_ref), (m, m_ref)):
+        assert tuple(got.shape) == (B, L, d) and bool(torch.isfinite(got).all())
+        worst, mean = _fused_errors(got, want)
+        assert worst <= 1 and mean <= 1e-4, (worst, mean)
+
+
+@pytest.mark.gpu
+def test_fused_rect_bounds_catch_a_dropped_bias_on_gpu():
+    """The plain versions without out_b, or without proj_b, fail the mean
+    bound against the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.ops import fused_rect_layer as frl
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    blk = _text_block(gen, 768)
+    x = torch.randn(4, 221, 768, generator=gen, device="cuda").to(torch.bfloat16)
+    no_out_b = {**blk["attn"], "out_b": torch.zeros_like(blk["attn"]["out_b"])}
+    no_proj_b = {**blk["mlp"], "proj_b": torch.zeros_like(blk["mlp"]["proj_b"])}
+    with torch.no_grad():
+        a = frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], 12, 197)
+        m = frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"])
+        _, mean_a = _fused_errors(a, frl.fused_rect_attn_half_reference(x, blk["ln_1"], no_out_b,
+                                                                         12, 197))
+        _, mean_m = _fused_errors(m, frl.fused_mlp_half_reference(x, blk["ln_2"], no_proj_b))
+    assert mean_a > 1e-4 and mean_m > 1e-4, (mean_a, mean_m)
+
+
+@pytest.mark.gpu
+def test_fused_rect_halves_raise_on_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.ops import fused_rect_layer as frl
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    blk = _text_block(gen, 256)
+    x = torch.zeros(2, 16, 256, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        with pytest.raises(TypeError, match="bfloat16"):
+            frl.fused_rect_attn_half(x.float(), blk["ln_1"], blk["attn"], 4, 9)
+        with pytest.raises(TypeError, match="bfloat16"):
+            frl.fused_mlp_half(x.float(), blk["ln_2"], blk["mlp"])
+        with pytest.raises(ValueError, match="head dim"):
+            frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], 8, 9)  # head dim 32
+        with pytest.raises(ValueError, match="n_kv"):
+            frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], 4, 17)  # n_kv > L
+    with pytest.raises(RuntimeError, match="forward-only"):
+        frl.fused_rect_attn_half(x.clone().requires_grad_(True), blk["ln_1"], blk["attn"], 4, 9)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        frl.fused_mlp_half(x.clone().requires_grad_(True), blk["ln_2"], blk["mlp"])

@@ -37,6 +37,7 @@ def test_importing_the_port_loads_neither_jax_nor_rpo_tpu():
     assert {
         "rpo_tpu_torch.ops.masked_attention",
         "rpo_tpu_torch.ops.fused_text_layer",
+        "rpo_tpu_torch.ops.fused_rect_layer",
         "rpo_tpu_torch.methods.cocoop",
         "rpo_tpu_torch.methods.coop",  # the CoOp trainer lives beside its functions
         "rpo_tpu_torch.methods.zsclip",
@@ -67,6 +68,9 @@ def test_entry_points_raise_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         RPO(["cat", "dog"], K=2, backbone="TINY")
+    from rpo_tpu_torch.ops.fused_rect_layer import fused_rect_residual_block
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RPO(["cat", "dog"], K=2, backbone="TINY", vision_layer=fused_rect_residual_block)
     for cls in (CoOp, CoCoOp, ZeroshotCLIP, ZeroshotCLIP2):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(["cat", "dog"], backbone="TINY")

@@ -6,6 +6,7 @@ paired kernel) are carried across with ``params_from_numpy``; prompts
 and images are the same on both sides.  The JAX eval path's Pallas
 kernels run in interpret mode.
 """
+import functools
 import io
 from contextlib import redirect_stdout
 
@@ -21,12 +22,14 @@ from rpo_tpu.data.transforms import device_normalize_fn as jax_normalize
 from rpo_tpu.engine.evaluator import ClassificationEvaluator as JaxEvaluator
 from rpo_tpu.methods import rpo as jcore
 from rpo_tpu.models.clip import ARCHS, cast_params, init_clip
+from rpo_tpu.ops.fused_rect_layer import fused_rect_residual_block as jax_fused_block
 from rpo_tpu_torch.data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
 from rpo_tpu_torch.engine.evaluator import ClassificationEvaluator
 from rpo_tpu_torch.methods import rpo as tcore
 from rpo_tpu_torch.methods.rpo_trainer import RPO
 from rpo_tpu_torch.models.clip import ARCHS as TARCHS, params_from_numpy
 from rpo_tpu_torch.models.clip import init_clip as tinit
+from rpo_tpu_torch.ops import fused_rect_layer as frl
 
 CLASSNAMES = [f"a longer class name {i}" for i in range(3)] + ["cat", "dog machine", "crimson finch"]
 K = 5
@@ -119,10 +122,10 @@ def test_encode_image_with_prompts(case, jax_pallas_interpret):
     _close(got, want, TOL[dtype]["feat"])
 
 
-def _trainer(case):
+def _trainer(case, vision_layer=None):
     prec = "fp32" if case["dtype"] == "float32" else "fp16"
     rpo = RPO(CLASSNAMES, K=K, backbone=case["arch"], prec=prec, device="cpu",
-              clip_params=case["tp"])
+              clip_params=case["tp"], vision_layer=vision_layer)
     rpo.set_ckpt_state(rpo.model_name, jax.tree_util.tree_map(np.asarray, case["prompts"]))
     return rpo
 
@@ -141,6 +144,34 @@ def test_eval_step_end_to_end(case, jax_pallas_interpret):
     assert got.dtype == torch.float32 and tuple(got.shape) == (3, len(CLASSNAMES))
     _close(got, want, TOL[dtype]["logits"])
     np.testing.assert_array_equal(rpo.model_inference(case["images"]), got.numpy())
+
+
+def test_eval_step_with_the_fused_vision_tower(case, monkeypatch):
+    """RPO(vision_layer=fused_rect_residual_block).eval_step (the plain
+    halves on the CPU) == JAX rpo_logits with the JAX fused block, in
+    interpret mode, in every vision layer in place of rect_residual_block;
+    the build lays the vision weights out once for the kernels."""
+    dtype = case["dtype"]
+    traced = []
+    fused = functools.partial(jax_fused_block, interpret=True)
+    monkeypatch.setattr(jcore, "rect_residual_block",
+                        lambda *args: traced.append(args[3]) or fused(*args))
+    normalize = jax_normalize(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, dtype=JDT[dtype])
+    frozen = jcore.make_frozen(case["jp"], case["task"])
+    text_f = jcore.encode_text_with_prompts(case["prompts"], frozen, case["task"])
+    want = jcore.rpo_logits(case["prompts"], frozen, case["task"],
+                            normalize(jnp.asarray(case["images"])), text_f=text_f)
+    assert traced  # the scanned vision tower ran the fused block
+    rpo = _trainer(case, frl.fused_rect_residual_block)
+    assert set(rpo._frozen["clip"]["visual"]["blocks"]["kernel"]) == {
+        "qkv_w", "out_w", "fc_w", "proj_w"}
+    before = (frl.attn_half_launches, frl.mlp_half_launches)
+    got = rpo.eval_step(case["images"])
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, len(CLASSNAMES))
+    _close(got, want, TOL[dtype]["logits"])
+    assert (frl.attn_half_launches, frl.mlp_half_launches) == before  # the plain halves here
+    # the same function as the unfused tower the default trainer runs
+    _close(got, np.asarray(_trainer(case).eval_step(case["images"])), TOL[dtype]["logits"])
 
 
 def test_cached_text_path_equals_masked_path():
