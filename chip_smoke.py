@@ -10,10 +10,16 @@ Phases, one line each (any failure exits non-zero):
               cuBLAS's reduced-precision bf16 reduction off;
   2. build    every CUDA source under rpo_tpu_torch/ops/csrc with nvcc;
   3. kernels  each kernel against its plain PyTorch version on the card
-              at the main paths' shapes, with its time, the plain
-              version's, one PyTorch library call's and the card's bound
-              (for the fused rect halves, the unfused port path's time
-              instead of a library call's);
+              at the main paths' shapes and at the bf16 attention
+              kernel's edges, with its time (the median of calls each
+              synchronised, launch included), the plain version's, one
+              PyTorch library call's and the card's bound (for the fused
+              rect halves, the unfused port path's time instead of a
+              library call's; the masked kernel at L = 77, 24 and 16);
+              for the attention kernels and SDPA also back-to-back calls
+              and the device time alone (torch.profiler); the attention
+              kernels' mean error against an f64 evaluation of their
+              contract, held to 1.1x their plain versions';
   4. RPO      RPO evaluation of ViT-B/16 in bf16 (K=24, 51 classes) on
               three batches of 100 seeded uint8 images, through the
               trainer's entry points; launches counted (12 masked in the
@@ -83,6 +89,10 @@ F32_TOL = 1e-5
 # mean error is 0 to 3.7e-5 at the phase-3 shapes (flips on a few elements
 # in 10^3), while a dropped bias of std 0.02 moves it by about 1.6e-2.
 FUSED_MEAN_TOL = 1e-4
+# An attention kernel's mean error against the f64 evaluation of its
+# contract, at most this times its plain version's: both round at the same
+# points, so they differ only in the f32 summation order.
+CONTRACT_RATIO = 1.1
 # Slice logits, kernel vs plain attention in every layer: the two differ
 # by bf16 rounding flips (summation order) that compound over 12 layers;
 # logits are exp(logit_scale) = 14.3 x a cosine (averaged over K pairs
@@ -130,25 +140,40 @@ def fused_errors(out: torch.Tensor, ref: torch.Tensor):
     return diff.max().item(), diff.mean().item(), (diff / tol).max().item()
 
 
-def time_ms(fn, n: int, warmup: int = 3) -> float:
-    """Median ms of ``fn()`` over ``n`` calls, CUDA events around each."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def bound(n_bytes: float, n_flops: float, bw: float, peak: float):
     """(bound ms, "bytes" or "operations") for the card's peaks."""
     bytes_ms, flops_ms = n_bytes / bw * 1e3, n_flops / peak * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def contract_check(label: str, kernel, plain, q, k, v, bias=None) -> None:
+    """The kernel and its plain version against an f64 evaluation of their
+    contract (probabilities rounded to bf16, the output not rounded): the
+    kernel's mean abs error at most CONTRACT_RATIO x the plain version's.
+    A slip in the rounding order (p cast before it is normalised, the bias
+    added in another rounding) moves outputs by about 1e-3, within
+    BF16_TOL, and shows here."""
+    with torch.no_grad():
+        s64 = torch.matmul(q.double(), k.double().transpose(-1, -2)) * q.shape[-1] ** -0.5
+        if bias is not None:
+            s64 = s64 + bias.double()
+        exact = torch.matmul(torch.softmax(s64, -1).to(torch.bfloat16).double(), v.double())
+        del s64
+        means, parts = {}, []
+        for what, fn in (("kernel", kernel), ("plain", plain)):
+            out = fn()
+            means[what] = (out.double() - exact).abs().mean().item()
+            off = int((out != exact.to(torch.bfloat16)).sum())
+            parts.append(f"{what} mean abs {means[what]:.4e}, {off} of {out.numel()} off the "
+                         "correctly rounded value")
+        del exact
+    ratio = means["kernel"] / means["plain"]
+    ok = ratio <= CONTRACT_RATIO
+    print(f"kernel {label} bf16 against an f64 evaluation of its contract: " + "; ".join(parts)
+          + f"; kernel / plain {ratio:.4f} (at most {CONTRACT_RATIO}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"{label}: mean error against the f64 contract {ratio:.4f} x the plain version's")
 
 
 def path_layout_qkv(gen, B, H, Lq, Lk, D, dtype):
@@ -174,13 +199,18 @@ def mask(kind: str, B: int, L: int) -> torch.Tensor:
     mask of the text towers, RPO's per-class text mask (causal, and every
     column >= the class's prompt length), RPO's shared visual mask (the
     last K columns), and a per-batch causal mask with one row fully
-    masked."""
+    masked, and a per-class mask at any L: causal, and every column >= the
+    class's length 1 + b % L."""
     i = np.arange(L)
     causal = np.where(i[None, :] > i[:, None], NEG_INF, 0.0).astype(np.float32)
     if kind == "causal":
         m = causal[None, None]
     elif kind == "text":
         lens = 4 + np.arange(B) % (L - K - 4)  # prompt lengths 4 .. L-K-1
+        m = np.where((i[None, None, :] >= lens[:, None, None]) | (causal[None] < 0), NEG_INF, 0.0)
+        m = m.astype(np.float32)[:, None]
+    elif kind == "prefix":
+        lens = 1 + np.arange(B) % L
         m = np.where((i[None, None, :] >= lens[:, None, None]) | (causal[None] < 0), NEG_INF, 0.0)
         m = m.astype(np.float32)[:, None]
     elif kind == "visual":
@@ -381,6 +411,7 @@ def main() -> int:
     from rpo_tpu_torch.ops.attention import multihead_attention_rect
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.tools.timing import call_ms, device_ms, fmt_ms, stream_ms
 
     # ---- 1. device --------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -418,6 +449,21 @@ def main() -> int:
         ("head dim 128", (2, 4, 221, 197, 128), torch.bfloat16, BF16_TOL, False),
         ("head dim 32", (2, 3, 70, 130, 32), torch.bfloat16, BF16_TOL, False),
         ("Lk over 256: two score passes", (2, 2, 33, 300, 64), torch.bfloat16, BF16_TOL, False),
+        # the bf16 kernel's edges: Lq 1 and 17, Lk either side of the
+        # 16-column pad and of the widest row held in registers (256 | 257
+        # at head dim <= 64, 128 | 129 at 128)
+        ("Lq 1, Lk 1", (2, 3, 1, 1, 64), torch.bfloat16, BF16_TOL, False),
+        ("Lq 17, Lk 16: one score tile", (2, 3, 17, 16, 64), torch.bfloat16, BF16_TOL, False),
+        ("Lk 17: one column into a second tile", (2, 3, 17, 17, 64), torch.bfloat16, BF16_TOL,
+         False),
+        ("Lk 256: the widest row in registers", (2, 2, 17, 256, 64), torch.bfloat16, BF16_TOL,
+         False),
+        ("Lk 257: the two-pass route", (2, 2, 17, 257, 64), torch.bfloat16, BF16_TOL, False),
+        ("Lq 1, Lk 300", (2, 2, 1, 300, 64), torch.bfloat16, BF16_TOL, False),
+        ("head dim 32, Lk 257", (2, 4, 17, 257, 32), torch.bfloat16, BF16_TOL, False),
+        ("head dim 128, Lk 16", (2, 4, 17, 16, 128), torch.bfloat16, BF16_TOL, False),
+        ("head dim 128, Lk 129: the two-pass route", (2, 4, 33, 129, 128), torch.bfloat16,
+         BF16_TOL, False),
     ]
     rect_err = None
     for label, (B, H, Lq, Lk, D), dtype, tol, paired in checks:
@@ -440,23 +486,9 @@ def main() -> int:
             fail(f"rect_attention {label}: max abs err {err} > {tol}")
         if rect_err is None:
             rect_err = err
-    # the kernel and its plain version against an f64 evaluation of the same
-    # contract (probabilities rounded to bf16, the output not rounded): is
-    # either nearer the exact value?
     q, k, v = fused_qkv(gen, 100, 12, 197, 64, torch.bfloat16)
-    with torch.no_grad():
-        s64 = torch.matmul(q.double(), k.double().transpose(-1, -2)) * 64 ** -0.5
-        exact = torch.matmul(torch.softmax(s64, -1).to(torch.bfloat16).double(), v.double())
-        del s64
-        readings = []
-        for what, out in (("kernel", ra.rect_attention(q, k, v)),
-                          ("plain", ra.rect_attention_reference(q, k, v))):
-            off = int((out != exact.to(torch.bfloat16)).sum())
-            readings.append(f"{what} mean abs {(out.double() - exact).abs().mean().item():.4e}, "
-                            f"{off} of {out.numel()} off the correctly rounded value")
-        del exact
-    print("kernel rect_attention (100,12,197,197,64) bf16 against an f64 evaluation of its "
-          "contract: " + "; ".join(readings), flush=True)
+    contract_check("rect_attention (100,12,197,197,64)", lambda: ra.rect_attention(q, k, v),
+                   lambda: ra.rect_attention_reference(q, k, v), q, k, v)
     try:
         z = torch.zeros(1, 1, 197, 128, device="cuda")
         ra.rect_attention(z[:, :, :8], z, z)
@@ -475,6 +507,17 @@ def main() -> int:
          F32_TOL),
         ("head dim 128", (2, 4, 77, 128), "causal", torch.bfloat16, BF16_TOL),
         ("head dim 32", (2, 3, 70, 32), "text", torch.bfloat16, BF16_TOL),
+        # short L: several (b, h) a block (4 at L = 16, 2 at 24), B*H not a
+        # multiple of that, so the last block is ragged
+        ("L 16, B*H 15, per-class mask", (3, 5, 16, 64), "prefix", torch.bfloat16, BF16_TOL),
+        ("L 16, B*H 15, shared causal", (3, 5, 16, 64), "causal", torch.bfloat16, BF16_TOL),
+        ("L 16, B*H 15, per-batch, one row fully masked", (3, 5, 16, 64), "full row",
+         torch.bfloat16, BF16_TOL),
+        ("L 24, B*H 9, per-class mask", (3, 3, 24, 64), "prefix", torch.bfloat16, BF16_TOL),
+        ("L 24, B*H 9, per-batch, one row fully masked", (3, 3, 24, 64), "full row",
+         torch.bfloat16, BF16_TOL),
+        ("L 77, B*H 21, per-class text mask", (7, 3, 77, 64), "text", torch.bfloat16, BF16_TOL),
+        ("L 16, head dim 128, B*H 15", (3, 5, 16, 128), "causal", torch.bfloat16, BF16_TOL),
     ]
     masked_err = None
     for label, (B, H, L, D), kind, dtype, tol in masked_checks:
@@ -501,43 +544,64 @@ def main() -> int:
         fail("masked_attention took a column-broadcast bias")
     except ValueError as exc:
         print(f"kernel masked_attention refuses a (2,1,77,1) bias: {exc}")
+    # the contract at the text towers' lengths: 5 score tiles at L = 77, 2 at
+    # 24 and 16, each with the shared causal bias
+    for L in (77, 24, 16):
+        q, k, v = fused_qkv(gen, 51, 8, L, 64, torch.bfloat16)
+        bias = mask("causal", 51, L)
+        contract_check(f"masked_attention (51,8,{L},{L},64) shared causal",
+                       lambda: ma.masked_attention(q, k, v, bias),
+                       lambda: ma.masked_attention_reference(q, k, v, bias), q, k, v, bias)
 
-    # timing: each kernel at its main-path shape, beside plain, library, bound
+    # timing: each kernel at its main-path shape, beside plain, SDPA, bound
+    def time_attention(label, kernel, plain, library, n_bytes, n_flops, bound_fmt=".4f"):
+        """The kernel and SDPA on the three timers of rpo_tpu_torch.tools.timing:
+        a call with its launch (ms, as every kernel here), back-to-back calls
+        (stream_ms) and the device time alone (device_ms)."""
+        t = {"ms": call_ms(kernel, 30), "stream_ms": stream_ms(kernel, 30),
+             "device_ms": device_ms(kernel, 30), "plain_ms": call_ms(plain, 10),
+             "library_ms": call_ms(library, 30), "library_stream_ms": stream_ms(library, 30),
+             "library_device_ms": device_ms(library, 30)}
+        t["bound_ms"], t["bound_by"] = bound(n_bytes, n_flops, bw, peak)
+        dev = (f"{t['device_ms'] / t['library_device_ms']:.2f}"
+               if t["device_ms"] and t["library_device_ms"] else "not measured")
+        print(f"time {label} bf16 on {smi}: kernel {t['ms']:.4f} ms a call (back to back "
+              f"{t['stream_ms']:.4f}, device {fmt_ms(t['device_ms'])}), plain {t['plain_ms']:.4f} "
+              f"ms, library SDPA {t['library_ms']:.4f} ms a call (back to back "
+              f"{t['library_stream_ms']:.4f}, device {fmt_ms(t['library_device_ms'])}), bound "
+              f"{t['bound_ms']:{bound_fmt}} ms by {t['bound_by']} ({n_bytes / 1e6:.2f} MB, "
+              f"{n_flops / 1e9:.3f} GFLOP); kernel / SDPA a call {t['ms'] / t['library_ms']:.2f}, "
+              f"back to back {t['stream_ms'] / t['library_stream_ms']:.2f}, device {dev}; kernel "
+              f"a call / bound {t['ms'] / t['bound_ms']:.1f}", flush=True)
+        return t
+
     B, H, Lq, Lk, D = 100, 12, 221, 197, 64
     q, k, v = path_layout_qkv(gen, B, H, Lq, Lk, D, torch.bfloat16)
-    rect_ms = time_ms(lambda: ra.rect_attention(q, k, v), 30)
-    rect_plain_ms = time_ms(lambda: ra.rect_attention_reference(q, k, v), 10)
-    rect_library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 30)
-    n_bytes, n_flops = 2 * B * H * (Lq + Lk + Lk + Lq) * D, 4 * B * H * Lq * Lk * D
-    rect_bound_ms, rect_bound_by = bound(n_bytes, n_flops, bw, peak)
-    print(f"time rect_attention (100,12,221,197,64) bf16 on {smi}: kernel {rect_ms:.4f} ms, "
-          f"plain {rect_plain_ms:.4f} ms, library SDPA {rect_library_ms:.4f} ms, bound "
-          f"{rect_bound_ms:.4f} ms by {rect_bound_by} ({n_bytes / 1e6:.1f} MB, "
-          f"{n_flops / 1e9:.2f} GFLOP)", flush=True)
-    q, k, v = fused_qkv(gen, 100, 12, 197, 64, torch.bfloat16)
-    sq_ms = time_ms(lambda: ra.rect_attention(q, k, v), 30)
-    sq_plain_ms = time_ms(lambda: ra.rect_attention_reference(q, k, v), 10)
-    sq_library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 30)
-    n_bytes, n_flops = 2 * 100 * 12 * 197 * 4 * 64, 4 * 100 * 12 * 197 * 197 * 64
-    sq_bound_ms, sq_bound_by = bound(n_bytes, n_flops, bw, peak)
-    print(f"time rect_attention (100,12,197,197,64) bf16 on {smi}: kernel {sq_ms:.4f} ms, "
-          f"plain {sq_plain_ms:.4f} ms, library SDPA {sq_library_ms:.4f} ms, bound "
-          f"{sq_bound_ms:.4f} ms by {sq_bound_by} ({n_bytes / 1e6:.1f} MB, "
-          f"{n_flops / 1e9:.2f} GFLOP)", flush=True)
-    B, H, L, D = 51, 8, 77, 64
-    q, k, v = fused_qkv(gen, B, H, L, D, torch.bfloat16)
-    bias = mask("causal", B, L)
-    bias_q = bias.to(q.dtype)  # SDPA takes a float mask in q's dtype
-    masked_ms = time_ms(lambda: ma.masked_attention(q, k, v, bias), 30)
-    masked_plain_ms = time_ms(lambda: ma.masked_attention_reference(q, k, v, bias), 10)
-    masked_library_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias_q),
-                                30)
-    n_bytes, n_flops = 2 * B * H * L * 4 * D + 4 * L * L, 4 * B * H * L * L * D
-    masked_bound_ms, masked_bound_by = bound(n_bytes, n_flops, bw, peak)
-    print(f"time masked_attention (51,8,77,77,64) bf16 shared causal on {smi}: kernel "
-          f"{masked_ms:.4f} ms, plain {masked_plain_ms:.4f} ms, library SDPA {masked_library_ms:.4f} "
-          f"ms, bound {masked_bound_ms:.5f} ms by {masked_bound_by} ({n_bytes / 1e6:.2f} MB, "
-          f"{n_flops / 1e9:.3f} GFLOP)", flush=True)
+    rect_attn_times = time_attention(
+        "rect_attention (100,12,221,197,64)", lambda: ra.rect_attention(q, k, v),
+        lambda: ra.rect_attention_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        2 * B * H * (Lq + Lk + Lk + Lq) * D, 4 * B * H * Lq * Lk * D)
+    q, k, v = fused_qkv(gen, B, H, Lk, D, torch.bfloat16)
+    sq_times = time_attention(
+        "rect_attention (100,12,197,197,64)", lambda: ra.rect_attention(q, k, v),
+        lambda: ra.rect_attention_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        2 * B * H * Lk * 4 * D, 4 * B * H * Lk * Lk * D)
+    # the masked kernel at the text towers' lengths: RPO set-up (77), CoOp
+    # (24), zero-shot (16), each with the shared causal mask
+    masked_times = {}
+    B, H, D = 51, 8, 64
+    for L in (77, 24, 16):
+        q, k, v = fused_qkv(gen, B, H, L, D, torch.bfloat16)
+        bias = mask("causal", B, L)
+        bias_q = bias.to(q.dtype)  # SDPA takes a float mask in q's dtype
+        masked_times[L] = time_attention(
+            f"masked_attention ({B},{H},{L},{L},{D}) shared causal",
+            lambda: ma.masked_attention(q, k, v, bias),
+            lambda: ma.masked_attention_reference(q, k, v, bias),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias_q),
+            2 * B * H * L * 4 * D + 4 * L * L, 4 * B * H * L * L * D, bound_fmt=".5f")
 
     fused_checks = [
         ("CoCoOp eval chunk, the slice", (510, 16, 512, 8)),
@@ -590,8 +654,8 @@ def main() -> int:
     x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
     causal = mask("causal", 1, L)[0, 0]
     with torch.no_grad():
-        fused_ms = time_ms(lambda: ftl.fused_text_layer(x, blk, heads, causal), 30)
-        fused_plain_ms = time_ms(lambda: ftl.fused_text_layer_reference(x, blk, heads, causal), 10)
+        fused_ms = call_ms(lambda: ftl.fused_text_layer(x, blk, heads, causal), 30)
+        fused_plain_ms = call_ms(lambda: ftl.fused_text_layer_reference(x, blk, heads, causal), 10)
     # each input read once (x, the weights, the mask), the output written once;
     # FLOPs: the four projections (12 d^2 MACs a row) and the two attention products
     n_weights = 12 * d * d + 13 * d
@@ -707,9 +771,9 @@ def main() -> int:
                     n_x + mlp_w, mlp_flops),
             }
             for what, (kernel_fn, plain_fn, unfused_fn, n_bytes, n_flops) in runs.items():
-                ms = time_ms(kernel_fn, 30)
-                plain_ms = time_ms(plain_fn, 10)
-                unfused_ms = time_ms(unfused_fn, 30)
+                ms = call_ms(kernel_fn, 30)
+                plain_ms = call_ms(plain_fn, 10)
+                unfused_ms = call_ms(unfused_fn, 30)
                 bound_ms, bound_by = bound(n_bytes, n_flops, bw, peak)
                 rect_times.setdefault(what, {})[label] = {
                     "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
@@ -934,13 +998,8 @@ def main() -> int:
         "launches": sum(rect_launches.values()),
         "launches_by_path": rect_launches,
         "max_abs_err": rect_err,
-        "ms": rect_ms,
-        "plain_ms": rect_plain_ms,
-        "bound_ms": rect_bound_ms,
-        "bound_by": rect_bound_by,
-        "library_ms": rect_library_ms,
-        "square_197": {"ms": sq_ms, "plain_ms": sq_plain_ms, "bound_ms": sq_bound_ms,
-                       "bound_by": sq_bound_by, "library_ms": sq_library_ms},
+        **rect_attn_times,
+        "square_197": sq_times,
     }, {
         "name": "masked_attention",
         "route": "cuda",
@@ -949,11 +1008,9 @@ def main() -> int:
         "launches": sum(masked_launches.values()),
         "launches_by_path": masked_launches,
         "max_abs_err": masked_err,
-        "ms": masked_ms,
-        "plain_ms": masked_plain_ms,
-        "bound_ms": masked_bound_ms,
-        "bound_by": masked_bound_by,
-        "library_ms": masked_library_ms,
+        **masked_times[77],
+        "L24": masked_times[24],
+        "L16": masked_times[16],
     }, {
         "name": "fused_text_layer",
         "route": "cuda",

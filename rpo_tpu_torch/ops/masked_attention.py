@@ -10,11 +10,14 @@ of shape (1 | B, 1, L, L):
 - on a CPU tensor it runs ``masked_attention_reference``, the same math in
   plain PyTorch.
 
-A shared (1, 1, L, L) bias is read in place (batch stride 0), never
-expanded into a per-batch copy.  There is no fallback from the kernel to
-the plain version.  ``launches`` counts the kernel launches.  The
-backward is the plain recompute with the bias, as in the JAX package; the
-bias is a static mask in every caller and gets no gradient.
+In bf16 the kernel runs on the tensor cores and takes L up to 768 at
+head dim 64 (1408 at 32, 384 at 128); the f32 instantiation is the SIMT
+kernel (``rect_attention``'s limits).  A shared (1, 1, L, L) bias is read
+in place (batch stride 0), never expanded into a per-batch copy.  There
+is no fallback from the kernel to the plain version.  ``launches`` counts
+the kernel launches.  The backward is the plain recompute with the bias,
+as in the JAX package; the bias is a static mask in every caller and gets
+no gradient.
 """
 from __future__ import annotations
 
@@ -46,11 +49,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor
         raise ValueError(f"bias is on {bias.device}, q on {q.device}")
     if bias.dtype != torch.float32:
         raise TypeError(f"bias must be float32, got {bias.dtype}")
-    if bias.dim() != 4 or bias.shape[1] != 1 or bias.shape[0] not in (1, B):
-        raise ValueError(f"bias must be (1 | {B}, 1, {L}, {L}), got {tuple(bias.shape)}")
-    if tuple(bias.shape[-2:]) != (L, L):
-        raise ValueError(f"bias's last two dims must be ({L}, {L}), got {tuple(bias.shape)}")
-    if bias.stride(3) != 1 and L > 1:
+    bs = bias.shape
+    if len(bs) != 4 or bs[1] != 1 or bs[0] not in (1, B):
+        raise ValueError(f"bias must be (1 | {B}, 1, {L}, {L}), got {tuple(bs)}")
+    if bs[2] != L or bs[3] != L:
+        raise ValueError(f"bias's last two dims must be ({L}, {L}), got {tuple(bs)}")
+    if L > 1 and bias.stride(3) != 1:
         raise ValueError("bias must be contiguous in its last dim")
 
 
@@ -61,7 +65,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
     lib = ra._lib()
     out = ra._out_like(q)
     bias_sb = 0 if bias.shape[0] == 1 else bias.stride(0)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = ra._stream(q.device)
     rc = lib.masked_attention_forward(
         ra._DTYPES[q.dtype], q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         bias.data_ptr(), out.data_ptr(), B, H, L, D,
@@ -74,15 +78,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tenso
     return out
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    if q.is_cuda:
+        return _launch(q, k, v, bias)
+    if q.device.type != "cpu":
+        raise ValueError(f"masked_attention runs on CUDA or the CPU, not {q.device}")
+    return masked_attention_reference(q, k, v, bias)
+
+
 class _MaskedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias):
         ctx.save_for_backward(q, k, v, bias)
-        if q.is_cuda:
-            return _launch(q, k, v, bias)
-        if q.device.type != "cpu":
-            raise ValueError(f"masked_attention runs on CUDA or the CPU, not {q.device}")
-        return masked_attention_reference(q, k, v, bias)
+        return _forward(q, k, v, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -96,4 +104,6 @@ def masked_attention(
     """Attention of q over k, v (B, H, L, D) plus the additive ``bias``
     (1 | B, 1, L, L), taken as float32: the CUDA kernel on a CUDA tensor,
     the plain version on a CPU tensor."""
-    return _MaskedAttention.apply(q, k, v, bias.float())
+    if ra._needs_grad(q, k, v):
+        return _MaskedAttention.apply(q, k, v, bias.float())
+    return _forward(q, k, v, bias.float())

@@ -8,6 +8,9 @@ q (B, H, Lq, D) against k, v (B, H, Lk, D):
 - on a CPU tensor it runs ``rect_attention_reference``, the same math in
   plain PyTorch.
 
+A bf16 tensor goes to the tensor-core kernel, which takes K and V of up to
+768 rows at head dim 64 (1408 at 32, 384 at 128); an f32 tensor to the
+SIMT kernel, which stages the scores too (273 rows at 64, 153 at 128).
 There is no fallback from the kernel to the plain version.  ``launches``
 counts the kernel launches, so a run can show that its path went through
 the kernel.  The backward is a plain-PyTorch recompute, as in the JAX
@@ -32,6 +35,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_YZ = 65535
 _ERR_SHARED_MEMORY = -3  # kErrSharedMemory in csrc/rect_attention.cu
+_MAX_SHARED = 232448  # bytes of shared memory one block can take on the H100 (sm_90)
 
 
 def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,42 +113,66 @@ def _launch_error(lib: ctypes.CDLL, name: str, rc: int, Lk: int, q: torch.Tensor
     return RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
 
 
+def _shared_bytes(dtype: torch.dtype, Lk: int, D: int) -> int:
+    """One block's shared memory in ``csrc/rect_attention.cu`` (its
+    ``tc_smem_bytes`` for bf16 with one (b, h) a block, ``smem_bytes`` for
+    f32), which checks it again against the card's limit: a change to
+    either formula goes into both."""
+    if dtype == torch.bfloat16:  # K and V padded to 16 rows, one 16-row Q tile per warp
+        ld, nkp = D + 8, -(-Lk // 16) * 16
+        return 2 * (2 * nkp * ld + 4 * 16 * ld)
+    ld = D + 4  # f32: Q (64 rows), K, V and the 64 x (Lk | 1) scores
+    return 4 * ((64 + Lk) * ld + Lk * D + 64 * (Lk | 1))
+
+
 def _out_like(q: torch.Tensor) -> torch.Tensor:
     """(B, H, L, D) output written as (B, L, H, D), so that the head merge
     of the output projection is a view."""
     B, H, L, D = q.shape
-    return torch.empty((B, L, H, D), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    return torch.empty_strided((B, H, L, D), (L * H * D, D, H * D, 1), dtype=q.dtype,
+                               device=q.device)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """Raise on anything the kernel does not take."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"{name} must be (B, H, L, D), got shape {tuple(t.shape)}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"rect_attention takes float32 or bfloat16, got {q.dtype}")
-    B, H, Lq, D = q.shape
-    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
-        raise ValueError(
-            f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} do not match"
-        )
+    dtype, device = q.dtype, q.device
+    for name, t in (("k", k), ("v", v)):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, q on {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {dtype}")
+    if dtype not in _DTYPES:
+        raise TypeError(f"rect_attention takes float32 or bfloat16, got {dtype}")
+    qs, ks = q.shape, k.shape
+    if len(qs) != 4 or len(ks) != 4 or v.dim() != 4:
+        raise ValueError(f"q, k, v must be (B, H, L, D), got shapes {tuple(qs)}, {tuple(ks)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Lq, D = qs
+    Lk = ks[2]
+    if ks != v.shape or ks[0] != B or ks[1] != H or ks[3] != D:
+        raise ValueError(f"shapes q {tuple(qs)}, k {tuple(ks)}, v {tuple(v.shape)} do not match")
     if D not in _HEAD_DIMS:
         raise ValueError(f"head dim {D} is not one of {_HEAD_DIMS}")
-    if min(B, H, Lq, k.shape[2]) < 1 or max(B, H) > _MAX_GRID_YZ:
-        raise ValueError(f"unsupported shape q {tuple(q.shape)}, k {tuple(k.shape)}")
-    es = q.element_size()
+    if min(B, H, Lq, Lk) < 1 or max(B, H) > _MAX_GRID_YZ:
+        raise ValueError(f"unsupported shape q {tuple(qs)}, k {tuple(ks)}")
+    if _shared_bytes(dtype, Lk, D) > _MAX_SHARED:
+        raise ValueError(f"Lk={Lk} at D={D} in {dtype} does not fit one block's shared memory")
+    align = 16 // q.element_size()  # elements in 16 bytes
     for name, t in (("q", q), ("k", k), ("v", v)):
         # rows are read as 16-byte vectors straight from the (possibly
         # strided) tensor: the last dim must be contiguous and every row
         # 16-byte aligned
-        if t.stride(3) != 1:
+        st = t.stride()
+        if st[3] != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
-        if t.data_ptr() % 16 or any((t.stride(i) * es) % 16 for i in range(3)):
+        if t.data_ptr() % 16 or (st[0] | st[1] | st[2]) % align:
             raise ValueError(f"{name}'s rows are not 16-byte aligned")
+
+
+def _stream(device: torch.device) -> int:
+    """The current CUDA stream's handle on ``device``, without building a
+    ``torch.cuda.Stream`` object at every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -154,7 +182,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     Lk = k.shape[2]
     lib = _lib()
     out = _out_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _stream(q.device)
     rc = lib.rect_attention_forward(
         _DTYPES[q.dtype], q.device.index, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         B, H, Lq, Lk, D,
@@ -167,15 +195,26 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    if q.is_cuda:
+        return _launch(q, k, v)
+    if q.device.type != "cpu":
+        raise ValueError(f"rect_attention runs on CUDA or the CPU, not {q.device}")
+    return rect_attention_reference(q, k, v)
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records a call on these tensors: where it does not
+    (eval under ``no_grad``), the wrappers skip the autograd Function and
+    its cost on the host."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class _RectAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
         ctx.save_for_backward(q, k, v)
-        if q.is_cuda:
-            return _launch(q, k, v)
-        if q.device.type != "cpu":
-            raise ValueError(f"rect_attention runs on CUDA or the CPU, not {q.device}")
-        return rect_attention_reference(q, k, v)
+        return _forward(q, k, v)
 
     @staticmethod
     def backward(ctx, g):
@@ -186,7 +225,9 @@ class _RectAttention(torch.autograd.Function):
 def rect_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Bias-free attention of q (B, H, Lq, D) over k, v (B, H, Lk, D):
     the CUDA kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    return _RectAttention.apply(q, k, v)
+    if _needs_grad(q, k, v):
+        return _RectAttention.apply(q, k, v)
+    return _forward(q, k, v)
 
 
 def unpair_heads(x: torch.Tensor, half: int) -> torch.Tensor:

@@ -30,30 +30,64 @@ def full_precision_matmuls():
         setattr(obj, name, value)
 
 
+def _path_layout(gen, B, H, Lq, Lk, D, dtype):
+    """q, k, v as the rect eval tower hands them over: head views of the
+    projection outputs (B, Lq, H*D) and (B, Lk, 2*H*D)."""
+    q = torch.randn(B, Lq, H * D, generator=gen, device="cuda").to(dtype)
+    kv = torch.randn(B, Lk, 2 * H * D, generator=gen, device="cuda").to(dtype)
+    q = q.view(B, Lq, H, D).permute(0, 2, 1, 3)
+    kv = kv.view(B, Lk, 2 * H, D).permute(0, 2, 1, 3)
+    return q, kv[:, :H], kv[:, H:]
+
+
+BF16 = torch.bfloat16
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "shape,dtype,tol",
+    "shape,dtype,tol,layout",
     [
-        ((100, 12, 221, 197, 64), torch.bfloat16, 2e-2),
-        ((3, 2, 9, 5, 32), torch.float32, 1e-5),
-        ((2, 12, 221, 197, 64), torch.float32, 1e-5),
-        ((2, 4, 221, 197, 128), torch.bfloat16, 2e-2),
-        ((2, 3, 70, 130, 32), torch.bfloat16, 2e-2),
-        ((2, 2, 33, 300, 64), torch.bfloat16, 2e-2),  # Lk > 256: two score passes
+        ((100, 12, 221, 197, 64), BF16, 2e-2, "contiguous"),
+        ((3, 2, 9, 5, 32), torch.float32, 1e-5, "contiguous"),
+        ((2, 12, 221, 197, 64), torch.float32, 1e-5, "contiguous"),
+        ((2, 4, 221, 197, 128), BF16, 2e-2, "contiguous"),
+        ((2, 3, 70, 130, 32), BF16, 2e-2, "contiguous"),
+        ((2, 2, 33, 300, 64), BF16, 2e-2, "contiguous"),  # Lk > 256: the two-pass route
+        # the bf16 kernel's edges: Lq 1 and 17 (one row, one row into a
+        # second tile), Lk either side of the 16-column pad (1, 16, 17) and
+        # of the widest row held in registers (256 | 257 at D <= 64, 128 |
+        # 129 at D = 128), the path's strided views, head dims 32 and 128
+        ((2, 3, 1, 1, 64), BF16, 2e-2, "contiguous"),
+        ((2, 3, 17, 16, 64), BF16, 2e-2, "contiguous"),
+        ((2, 3, 17, 17, 64), BF16, 2e-2, "path"),
+        ((2, 2, 17, 256, 64), BF16, 2e-2, "path"),
+        ((2, 2, 17, 257, 64), BF16, 2e-2, "path"),
+        ((2, 2, 1, 300, 64), BF16, 2e-2, "path"),
+        ((5, 12, 221, 197, 64), BF16, 2e-2, "path"),
+        ((2, 4, 17, 1, 32), BF16, 2e-2, "path"),
+        ((2, 4, 1, 257, 32), BF16, 2e-2, "path"),
+        ((2, 4, 17, 16, 128), BF16, 2e-2, "path"),
+        ((2, 4, 17, 128, 128), BF16, 2e-2, "path"),
+        ((2, 4, 33, 129, 128), BF16, 2e-2, "path"),
+        ((2, 4, 17, 300, 128), BF16, 2e-2, "path"),
     ],
 )
-def test_kernel_matches_plain_version_on_gpu(shape, dtype, tol):
+def test_kernel_matches_plain_version_on_gpu(shape, dtype, tol, layout):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     B, H, Lq, Lk, D = shape
     gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (
-        torch.randn(B, H, n, D, generator=gen, device="cuda").to(dtype) for n in (Lq, Lk, Lk)
-    )
+    if layout == "path":
+        q, k, v = _path_layout(gen, B, H, Lq, Lk, D, dtype)
+    else:
+        q, k, v = (
+            torch.randn(B, H, n, D, generator=gen, device="cuda").to(dtype) for n in (Lq, Lk, Lk)
+        )
     before = ra.launches
     got = ra.rect_attention(q, k, v)
     torch.cuda.synchronize()
     assert ra.launches == before + 1
+    assert bool(torch.isfinite(got).all())
     err = (got.float() - ra.rect_attention_reference(q, k, v).float()).abs().max().item()
     assert err <= tol
 
@@ -66,6 +100,9 @@ def test_kernel_raises_on_what_it_does_not_take():
     with pytest.raises(ValueError, match="shared memory"):
         ra.rect_attention(q, torch.zeros(1, 1, 197, 128, device="cuda"),
                           torch.zeros(1, 1, 197, 128, device="cuda"))
+    kv = torch.zeros(1, 1, 769, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ra.rect_attention(kv[:, :, :8], kv, kv)
     with pytest.raises(ValueError, match="head dim"):
         ra.rect_attention(*(torch.zeros(1, 1, 8, 48, device="cuda"),) * 3)
     with pytest.raises(TypeError):
@@ -116,6 +153,16 @@ def _bias(kind, B, L):
         ((3, 2, 10, 32), "per-batch, one row fully masked", torch.float32, 1e-5),
         ((2, 4, 77, 128), "shared causal", torch.bfloat16, 2e-2),
         ((2, 3, 70, 32), "per-class text mask", torch.bfloat16, 2e-2),
+        # short L, several (b, h) a block (4 at L = 16, 2 at 24), B*H not a
+        # multiple of that: the last block ragged
+        ((3, 5, 16, 64), "shared causal", torch.bfloat16, 2e-2),
+        ((3, 5, 16, 64), "per-class text mask", torch.bfloat16, 2e-2),
+        ((3, 5, 16, 64), "per-batch, one row fully masked", torch.bfloat16, 2e-2),
+        ((3, 3, 24, 64), "per-class text mask", torch.bfloat16, 2e-2),
+        ((3, 3, 24, 64), "per-batch, one row fully masked", torch.bfloat16, 2e-2),
+        ((7, 3, 77, 64), "per-batch, one row fully masked", torch.bfloat16, 2e-2),
+        ((5, 3, 16, 32), "per-class text mask", torch.bfloat16, 2e-2),
+        ((3, 5, 16, 128), "shared causal", torch.bfloat16, 2e-2),
     ],
 )
 def test_masked_kernel_matches_plain_version_on_gpu(shape, kind, dtype, tol):

@@ -206,6 +206,8 @@ def _bad_inputs():
         "bias rank": (ValueError, qkv + (z(9, 9),)),
         "bias last dim stride": (ValueError, qkv + (z(1, 1, 9, 9).transpose(2, 3),)),
         "row alignment": (ValueError, (z(2, 3, 9, 65)[..., 1:],) + qkv[1:] + (z(1, 1, 9, 9),)),
+        "L over shared memory, bf16": (ValueError, (z(1, 1, 769, 64, dtype=torch.bfloat16),) * 3
+                                       + (z(1, 1, 769, 769),)),
     }
 
 
