@@ -19,13 +19,17 @@ Phases, one line each (any failure exits non-zero):
               for the attention kernels and SDPA also back-to-back calls
               and the device time alone (torch.profiler); the attention
               kernels' mean error against an f64 evaluation of their
-              contract, held to 1.1x their plain versions';
+              contract, held to 1.1x their plain versions; the rect
+              kernel also at the RPO train step's two shapes (batch 4:
+              the 197 frozen rows, the 24 prompt rows over them);
   4. RPO      RPO evaluation of ViT-B/16 in bf16 (K=24, 51 classes) on
               three batches of 100 seeded uint8 images, through the
               trainer's entry points; launches counted (12 masked in the
               set-up's text K/V, 12 rect per batch); logits checked
-              against the same batches on the plain attention; one more
-              batch under torch.profiler for where the time goes;
+              against the same batches fully on the plain versions (a
+              text K/V cache built with the plain masked attention, the
+              plain rect attention in the tower); one more batch under
+              torch.profiler for where the time goes;
   5. CoOp     CoOp evaluation (N_CTX 16, end, no CSC) on the same
               backbone and batches: 12 masked launches for the text
               features, 12 rect per batch; logits against the plain run;
@@ -46,7 +50,15 @@ Phases, one line each (any failure exits non-zero):
               fused attention-half and one fused MLP-half launch (36 each
               for three batches, no rect launch, 12 masked in set-up);
               logits against the same path on the plain halves and
-              against phase 4's logits; a profile.
+              against phase 4's logits; a profile;
+ 10. RPO train  RPO training of ViT-B/16 in bf16 (K=24, 51 classes, batch
+              4, float32 prompts, LR 0.01) through the trainer's train
+              step: 12 masked launches in the set-up, 24 rect launches a
+              step (12 on the frozen rows, 12 on the prompt rows), no
+              fused one; the first step's loss, logits and prompt
+              gradients, and ten steps' losses, against the same steps
+              fully on the plain versions; train images/s at the median
+              of 20 synchronised steps after warm-up; one step profiled.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
 from seed 1 and shared by the methods.  Imports nothing of JAX or
@@ -80,6 +92,11 @@ N_CTX = 16
 N_CLS = 51
 EVAL_BATCH = 100
 N_BATCHES = 3
+TRAIN_BATCH = 4  # the main_K24 protocol's train batch
+TRAIN_LR = 0.01  # configs/trainers/RPO/main.yaml's LR, its first epoch after warmup
+N_TRAIN_CHECK = 10  # steps whose losses are held against the plain run
+TRAIN_WARMUP = 3
+N_TRAIN_TIMED = 20
 NEG_INF = -1e9
 BF16_TOL = 2e-2  # inputs N(0, 1): about 2 bf16 ulps of outputs below 2
 F32_TOL = 1e-5
@@ -106,6 +123,16 @@ SLICE_ARGMAX_AGREE = 0.98
 # weights leave a median top-2 margin of 0.015: 4 of 300 argmax flipped
 # for CoOp on the card.  A kernel fault would break SLICE_ATOL first.
 SINGLE_PAIR_ARGMAX_AGREE = 0.97
+# A train step against the same step on the plain versions: the
+# cross-entropy moves by at most twice the largest logit difference, so
+# a loss is held to 2 x SLICE_ATOL.  A prompt gradient, through 12 bf16
+# layers of both towers on either side, differs by rounding flips: its
+# largest error within TRAIN_GRAD_REL of its largest entry and its cosine
+# to the plain one >= TRAIN_GRAD_COS (the port's CPU test holds it to the
+# JAX gradient with the same bounds).
+TRAIN_LOSS_ATOL = 2 * SLICE_ATOL
+TRAIN_GRAD_REL = 0.1
+TRAIN_GRAD_COS = 0.99
 # CoCoOp conditions every class's context on the image feature through the
 # meta-net, so a rounding flip in the vision tower moves all 51 text
 # features of an image, not only its side of the cosine.  On random weights
@@ -186,6 +213,18 @@ def path_layout_qkv(gen, B, H, Lq, Lk, D, dtype):
     return q, kv[:, :H], kv[:, H:]
 
 
+def train_layout_qkv(gen, B, H, Lq, Lk, D, dtype):
+    """q, k, v as the split vision tower hands them to the kernel: k and v
+    head views of the frozen rows' fused QKV output (B, Lk, 3*H*D); q of
+    the same output (the frozen rows, Lq = Lk) or of the prompt rows' own
+    q projection (B, Lq, H*D)."""
+    q, k, v = fused_qkv(gen, B, H, Lk, D, dtype)
+    if Lq != Lk:
+        q = torch.randn(B, Lq, H * D, generator=gen, device="cuda").to(dtype)
+        q = q.view(B, Lq, H, D).permute(0, 2, 1, 3)
+    return q, k, v
+
+
 def fused_qkv(gen, B, H, L, D, dtype):
     """q, k, v as a self-attention tower hands them to the kernel: head
     views of the fused QKV projection output (B, L, 3*H*D)."""
@@ -240,9 +279,10 @@ def text_block(gen, d: int) -> dict:
     }
 
 
-def profile_eval_step(step, images, smi: str, label: str) -> None:
-    """One more eval batch under torch.profiler: device time by kernel
-    group and the device's idle share of the batch's wall time."""
+def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batch") -> None:
+    """One more eval batch (or train step, ``what``) under torch.profiler:
+    device time by kernel group, the device's idle share of its wall time
+    and the count of device operations."""
     from torch.profiler import ProfilerActivity, profile
 
     step(images)  # warm
@@ -252,10 +292,11 @@ def profile_eval_step(step, images, smi: str, label: str) -> None:
         step(images)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    groups = {}
+    groups, n_ops = {}, 0
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
+        n_ops += evt.count
         us = evt.self_device_time_total
         n = evt.key.lower()
         group = ("fused_text_layer kernel" if "fused_text_layer" in n
@@ -276,8 +317,9 @@ def profile_eval_step(step, images, smi: str, label: str) -> None:
         return
     parts = ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
                       for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
-    print(f"profile {label} eval batch on {smi}: wall {wall_us / 1e3:.2f} ms, device busy "
-          f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}; {parts}", flush=True)
+    print(f"profile {label} {what} on {smi}: wall {wall_us / 1e3:.2f} ms, device busy "
+          f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}, {n_ops} device "
+          f"operations (kernels and copies); {parts}", flush=True)
 
 
 def run_batches(step, batches):
@@ -495,6 +537,21 @@ def main() -> int:
         fail("rect_attention took f32 K/V that do not fit shared memory")
     except ValueError as exc:
         print(f"kernel rect_attention refuses f32 (1,1,8,197,128): {exc}")
+    # the RPO train step's split vision tower at batch 4: the frozen rows,
+    # and the K prompt rows over them
+    train_shapes = {"train frozen rows": (TRAIN_BATCH, 12, 197, 197, 64),
+                    "train prompt rows": (TRAIN_BATCH, 12, K, 197, 64)}
+    for label, shape in train_shapes.items():
+        q, k, v = train_layout_qkv(gen, *shape, torch.bfloat16)
+        out = ra.rect_attention(q, k, v)
+        ref = ra.rect_attention_reference(q, k, v)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = err <= BF16_TOL and bool(torch.isfinite(out).all())
+        print(f"kernel rect_attention {label} {shape} bf16: max_abs_err {err:.3e} "
+              f"(tol {BF16_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"rect_attention {label}: max abs err {err} > {BF16_TOL}")
 
     masked_checks = [
         ("RPO set-up text K/V, shared causal", (51, 8, 77, 64), "causal", torch.bfloat16, BF16_TOL),
@@ -588,6 +645,14 @@ def main() -> int:
         lambda: ra.rect_attention_reference(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v),
         2 * B * H * Lk * 4 * D, 4 * B * H * Lk * Lk * D)
+    train_times = {}
+    for label, (B, H, Lq, Lk, D) in train_shapes.items():
+        q, k, v = train_layout_qkv(gen, B, H, Lq, Lk, D, torch.bfloat16)
+        train_times[label] = time_attention(
+            f"rect_attention {(B, H, Lq, Lk, D)} {label}", lambda: ra.rect_attention(q, k, v),
+            lambda: ra.rect_attention_reference(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            2 * B * H * (Lq + Lk + Lk + Lq) * D, 4 * B * H * Lq * Lk * D, bound_fmt=".5f")
     # the masked kernel at the text towers' lengths: RPO set-up (77), CoOp
     # (24), zero-shot (16), each with the shared causal mask
     masked_times = {}
@@ -815,12 +880,20 @@ def main() -> int:
     check_launches("RPO eval", ma, text_layers)
     print(f"RPO launches: masked {ma.launches} = {text_layers} (set-up text K/V), rect "
           f"{ra.launches} = {n_layers} x {N_BATCHES}", flush=True)
-    plain = [rpo.eval_step(images, rect_attn=ra.rect_attention_reference) for images in batches]
-    check_logits(f"slice RPO ViT-B/16 bf16 K={K} n_cls={N_CLS}", logits, plain)
+    # fully plain: the text K/V cache built with the plain masked attention,
+    # the vision tower on the plain rect attention
+    plain_frozen = rpo_core.make_frozen(clip, rpo.task, masked_attn=ma.masked_attention_reference)
+    with torch.no_grad():
+        plain_tf = rpo_core.encode_text_with_prompts(rpo.params, plain_frozen, rpo.task)
+        plain = [rpo_core.rpo_logits(
+            rpo.params, plain_frozen, rpo.task, rpo._normalize(torch.from_numpy(images).cuda()),
+            text_f=plain_tf, rect_attn=ra.rect_attention_reference) for images in batches]
+    check_logits(f"slice RPO ViT-B/16 bf16 K={K} n_cls={N_CLS}", logits, plain,
+                 against="both plain versions (text K/V cache and vision tower)")
     report_rate("RPO", setup_s, batch_s, smi)
     profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO")
     rpo_rect_logits = logits  # phase 9 is held against them
-    del rpo, plain
+    del rpo, plain, plain_frozen, plain_tf
 
     # ---- 5. CoOp ViT-B/16 bf16 eval through the trainer ---------------------
     ra.launches = ma.launches = 0
@@ -989,6 +1062,100 @@ def main() -> int:
     profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO fused")
     del rpo, plain
 
+    # ---- 10. RPO ViT-B/16 bf16 training through the trainer -----------------
+    train_rng = np.random.RandomState(4)
+    train_batches = [(train_rng.randint(0, 256, (TRAIN_BATCH, 224, 224, 3)).astype(np.uint8),
+                      train_rng.randint(0, N_CLS, TRAIN_BATCH), np.ones(TRAIN_BATCH, np.float32))
+                     for _ in range(N_TRAIN_CHECK + TRAIN_WARMUP + N_TRAIN_TIMED)]
+    train_batches[0][2][-1] = 0.0  # a padded row in the first batch
+    ra.launches = ma.launches = ftl.launches = frl.attn_half_launches = frl.mlp_half_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rpo = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1,
+              clip_params=clip)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    masked_launches["RPO train set-up"] = check_launches("RPO train set-up", ma, text_layers)
+    first_prompts = {key: t.clone() for key, t in rpo.params.items()}
+    losses = [rpo.train_step(*batch, TRAIN_LR)[0] for batch in train_batches[:N_TRAIN_CHECK]]
+    torch.cuda.synchronize()
+    rect_launches["RPO train"] = check_launches("RPO train", ra, 2 * n_layers * N_TRAIN_CHECK)
+    check_launches("RPO train", ma, text_layers)
+    check_launches("RPO train", ftl, 0)
+    if frl.attn_half_launches or frl.mlp_half_launches:
+        fail("RPO train launched a fused rect half")
+    print(f"RPO train launches: masked {ma.launches} = {text_layers} (set-up text K/V), rect "
+          f"{ra.launches} = 2 x {n_layers} x {N_TRAIN_CHECK} steps (each layer: the "
+          f"{TRAIN_BATCH}x197 frozen rows, the {TRAIN_BATCH}x{K} prompt rows over them), "
+          f"fused 0", flush=True)
+
+    # the first step and ten steps against the same steps fully on the plain
+    # versions: a K/V cache built with the plain masked attention, the plain
+    # rect attention in the split tower
+    refs = dict(rect_attn=ra.rect_attention_reference, masked_attn=ma.masked_attention_reference)
+    rpo.set_ckpt_state(rpo.model_name, first_prompts)  # the first prompts, a fresh optimizer
+    plain = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1,
+                clip_params=clip)
+    plain._frozen = rpo_core.make_frozen(clip, plain.task, masked_attn=ma.masked_attention_reference)
+    loss, logits, grads = rpo.loss_and_grads(*train_batches[0])
+    p_loss, p_logits, p_grads = plain.loss_and_grads(*train_batches[0], **refs)
+    if tuple(logits.shape) != (TRAIN_BATCH, N_CLS) or not bool(torch.isfinite(logits).all()):
+        fail(f"RPO train logits have shape {tuple(logits.shape)} or are not finite")
+    loss_err = abs(loss.item() - p_loss.item())
+    logits_err = (logits - p_logits).abs().max().item()
+    failed = [] if loss_err <= TRAIN_LOSS_ATOL and logits_err <= SLICE_ATOL else ["loss or logits"]
+    parts = []
+    for key, g in grads.items():
+        want = p_grads[key]
+        err = (g - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        cos = F.cosine_similarity(g.flatten().double(), want.flatten().double(), dim=0).item()
+        finite = bool(torch.isfinite(g).all())
+        ok = finite and rel <= TRAIN_GRAD_REL and cos >= TRAIN_GRAD_COS
+        parts.append(f"{key} {tuple(g.shape)} max_abs_err {err:.3e} (max|g| "
+                     f"{want.abs().max().item():.3e}, relative {rel:.3e}, tol {TRAIN_GRAD_REL}), "
+                     f"cosine {cos:.6f} (>= {TRAIN_GRAD_COS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(key)
+    print(f"slice RPO train ViT-B/16 bf16 K={K} n_cls={N_CLS} batch {TRAIN_BATCH} (one padded "
+          f"row), first step vs both plain versions: loss {loss.item():.6f} vs {p_loss.item():.6f} "
+          f"(err {loss_err:.3e}, tol {TRAIN_LOSS_ATOL:g}); logits max_abs_err {logits_err:.3e} "
+          f"(tol {SLICE_ATOL}); " + "; ".join(parts), flush=True)
+    if failed:
+        fail(f"RPO train first step disagrees with the plain run: {', '.join(failed)}")
+    p_losses = [plain.train_step(*batch, TRAIN_LR, **refs)[0]
+                for batch in train_batches[:N_TRAIN_CHECK]]
+    losses, p_losses = torch.stack(losses), torch.stack(p_losses)
+    steps_err = (losses - p_losses).abs().max().item()
+    ok = steps_err <= TRAIN_LOSS_ATOL and bool(torch.isfinite(losses).all())
+    print(f"slice RPO train {N_TRAIN_CHECK} steps at LR {TRAIN_LR}: losses "
+          f"{[round(x, 5) for x in losses.tolist()]}; plain {[round(x, 5) for x in p_losses.tolist()]}; "
+          f"max_abs_err {steps_err:.3e} (tol {TRAIN_LOSS_ATOL:g}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("RPO train losses disagree with the plain run")
+    del plain, p_grads, grads
+
+    # train images/s: the run goes on from the first prompts, synchronised
+    # steps from the host's uint8 batch to the updated prompts
+    for batch in train_batches[N_TRAIN_CHECK:N_TRAIN_CHECK + TRAIN_WARMUP]:
+        rpo.train_step(*batch, TRAIN_LR)
+    step_s = []
+    for batch in train_batches[N_TRAIN_CHECK + TRAIN_WARMUP:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rpo.train_step(*batch, TRAIN_LR)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    med = statistics.median(step_s)
+    print(f"RPO train on {smi}: setup {setup_s:.2f} s; step seconds median {med:.5f} (min "
+          f"{min(step_s):.5f}, max {max(step_s):.5f}, {len(step_s)} steps after {TRAIN_WARMUP} "
+          f"warm-up); {TRAIN_BATCH / med:.1f} train images/s at the median step, "
+          f"{TRAIN_BATCH * len(step_s) / sum(step_s):.1f} over all", flush=True)
+    profile_eval_step(lambda batch: rpo.train_step(*batch, TRAIN_LR), train_batches[-1], smi,
+                      "RPO", "train step")
+    del rpo
+
     print(json.dumps({"kernels": [{
         "name": "rect_attention",
         "route": "cuda",
@@ -1000,6 +1167,8 @@ def main() -> int:
         "max_abs_err": rect_err,
         **rect_attn_times,
         "square_197": sq_times,
+        "train_frozen_rows": train_times["train frozen rows"],
+        "train_prompt_rows": train_times["train prompt rows"],
     }, {
         "name": "masked_attention",
         "route": "cuda",

@@ -1,16 +1,20 @@
-"""Shared trainer plumbing for the CLIP prompt methods: the eval half.
+"""Shared trainer plumbing for the CLIP prompt methods.
 
-Port of the evaluation side of ``rpo_tpu/methods/base_trainer.py``: the
-precision map, the per-task text-feature cache, ``model_inference`` and
-the checkpoint-state install with its shape validation.  A subclass's
+Port of ``rpo_tpu/methods/base_trainer.py``: the precision map, the
+per-task text-feature cache, ``model_inference``, the checkpoint-state
+install with its shape validation, and the train step (masked
+cross-entropy, gradients of the trainable tensors only, SGD, masked
+top-1 accuracy) with its optimizer state.  A subclass's
 ``build_method()`` sets ``self.task``, ``self.params`` and
-``self._frozen`` and calls ``_install_steps`` with two functions:
+``self._frozen`` and calls ``_install_steps`` with
 
   text_features(params, frozen) -> per-task tensors for eval (or None)
   eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn) -> logits
 
-The engine around it (config, data, epoch loop, training) is not ported
-yet; the trainer takes its settings as arguments.
+and, for a method that trains here, the ``loss_and_grads`` function that
+``_make_train_step`` builds.  The engine around it (config, data, epoch
+loop) is not ported yet: the trainer takes its settings as arguments and
+the caller sets ``current_lr``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 
 from ..data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, device_normalize_fn
 from ..device import DeviceLike, resolve_device
+from ..engine import optim
 from ..models.clip.model import ARCHS, cast_params, init_clip
 from ..ops.attention import Attention, MaskedAttention
 from ..ops.masked_attention import masked_attention
@@ -40,6 +45,7 @@ def prec_dtype(prec: str) -> torch.dtype:
 
 class CLIPMethodTrainer:
     model_name = "model"
+    log_acc = True  # the CoOp family logs accuracy; RPO only the loss
 
     def __init__(
         self,
@@ -48,13 +54,31 @@ class CLIPMethodTrainer:
         seed: int = 1,
         device: DeviceLike = None,
         clip_params: Optional[dict] = None,
+        momentum: float = 0.9,
+        weight_decay: float = 5e-4,
+        nesterov: bool = False,
+        dampening: float = 0.0,
+        microbatch: int = 0,
     ):
         """``clip_params`` (a nested dict of tensors on ``device``) replaces
         the random backbone, which is drawn from ``seed`` otherwise: no CLIP
         checkpoint ships with the repository.  Images are normalised with
-        CLIP's pixel statistics (every RPO config's INPUT.PIXEL_MEAN/STD)."""
+        CLIP's pixel statistics (every RPO config's INPUT.PIXEL_MEAN/STD).
+        ``momentum``, ``weight_decay``, ``nesterov`` and ``dampening`` are
+        the SGD settings (OPTIM.MOMENTUM, WEIGHT_DECAY, SGD_NESTEROV,
+        SGD_DAMPNING; nesterov with dampening raises); ``microbatch``
+        (TRAIN.MICROBATCH) computes the train forward in chunks of that
+        many images inside the one loss and gradient."""
         if prec not in ("fp16", "fp32", "amp"):
             raise ValueError(f"PREC must be fp16, fp32 or amp, got {prec!r}")
+        if nesterov and dampening:
+            raise ValueError("Nesterov momentum requires zero dampening")
+        self._momentum = float(momentum)
+        self._weight_decay = float(weight_decay)
+        self._nesterov = bool(nesterov)
+        self._dampening = float(dampening)
+        self._microbatch = int(microbatch)
+        self.current_lr: Optional[float] = None
         self.device = resolve_device(device)
         self.seed = max(int(seed), 0)
         self.clip_cfg = ARCHS[backbone]
@@ -65,17 +89,137 @@ class CLIPMethodTrainer:
         self.clip_params = cast_params(clip_params, dtype)
         self._normalize = device_normalize_fn(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, dtype=dtype)
         self.params = None
+        self._loss_and_grads = None
         self.build_method()
+        self._reset_optimizer()
 
     def build_method(self) -> None:
         raise NotImplementedError
 
-    def _install_steps(self, text_features, eval_step) -> None:
+    def _install_steps(self, text_features, eval_step, loss_and_grads=None) -> None:
         self._text_features = text_features
         self._eval_step = eval_step
+        self._loss_and_grads = loss_and_grads
         self._text_f_cache = None
         if not hasattr(self, "_frozen"):
             raise RuntimeError("build_method must set self._frozen")
+
+    def _reset_optimizer(self) -> None:
+        """A fresh SGD over the trainable tensors (``sgd_init``); none for
+        a method with nothing to train (zero-shot CLIP)."""
+        self._optimizer = optim.sgd(self.params, self._momentum, self._weight_decay,
+                                    self._nesterov, self._dampening) if self.params else None
+
+    # -- training -------------------------------------------------------------
+    def _make_train_step(self, logits_fn, precompute=None):
+        """The standard step's loss and gradients over
+        ``logits_fn(params, frozen, images_u8, ctx, rect_attn, masked_attn)
+        -> (B, n_cls)``: masked cross-entropy in which padded rows weigh 0,
+        gradients of the trainable tensors only.  Returns
+        ``loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn,
+        masked_attn) -> (loss, logits, grads)``; ``train_step`` adds the
+        SGD update and the masked accuracy.
+
+        ``ctx`` is per-step work shared across chunks (RPO's text tower,
+        on the live prompts, under grad), made once by
+        ``precompute(params, frozen, masked_attn)``, None without one.
+        ``self._microbatch`` computes the forward in chunks of that many
+        images inside the one loss and gradient; it engages only for
+        batches it divides evenly and is smaller than, else the step is
+        monolithic.  The math is the monolithic step's row by row."""
+        mb = self._microbatch
+
+        def batch_logits(p, frozen, images_u8, rect_attn, masked_attn):
+            ctx = None if precompute is None else precompute(p, frozen, masked_attn)
+            B = images_u8.shape[0]
+            if not 0 < mb < B or B % mb:
+                return logits_fn(p, frozen, images_u8, ctx, rect_attn, masked_attn)
+            return torch.cat([
+                logits_fn(p, frozen, images_u8[i * mb:(i + 1) * mb], ctx, rect_attn, masked_attn)
+                for i in range(B // mb)])
+
+        def loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn, masked_attn):
+            # the trainable tensors as autograd leaves sharing their storage
+            leaves = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
+            with torch.enable_grad():
+                logits = batch_logits(leaves, frozen, images_u8, rect_attn, masked_attn)
+                logp = torch.log_softmax(logits, dim=-1)
+                nll = -logp.gather(-1, labels[:, None])[:, 0]
+                loss = torch.sum(nll * mask) / torch.sum(mask)
+                flat = list(optim.tree_leaves(leaves))
+                grads = torch.autograd.grad(loss, flat)
+            it = iter(grads)
+            return loss.detach(), logits.detach(), optim.tree_map(lambda _: next(it), leaves)
+
+        return loss_and_grads
+
+    def _batch(self, images_u8, labels, mask):
+        """A host batch on the device: uint8 images, int64 labels and the
+        float32 row mask (0 for a padded row)."""
+        return (torch.as_tensor(images_u8).to(self.device),
+                torch.as_tensor(labels).to(self.device, torch.int64),
+                torch.as_tensor(mask).to(self.device, torch.float32))
+
+    def loss_and_grads(
+        self,
+        images_u8,
+        labels,
+        mask,
+        rect_attn: Attention = rect_attention,
+        masked_attn: MaskedAttention = masked_attention,
+    ):
+        """(loss, logits, grads) of the train step at the current
+        trainable state, without the update.  ``rect_attn`` and
+        ``masked_attn`` replace the attention kernels (for a comparison
+        with their plain versions)."""
+        return self._grads_on(self._batch(images_u8, labels, mask), rect_attn, masked_attn)
+
+    def _grads_on(self, batch, rect_attn, masked_attn):
+        if self._loss_and_grads is None:
+            raise NotImplementedError(f"{type(self).__name__} does not train in this package yet")
+        return self._loss_and_grads(self.params, self._frozen, *batch, rect_attn, masked_attn)
+
+    def train_step(
+        self,
+        images_u8,
+        labels,
+        mask,
+        lr: float,
+        rect_attn: Attention = rect_attention,
+        masked_attn: MaskedAttention = masked_attention,
+    ):
+        """One SGD step at ``lr`` on a (B, H, W, 3) uint8 batch; returns
+        the masked loss and the masked top-1 accuracy as device scalars
+        (no host sync).  Clears the text-feature cache."""
+        batch = self._batch(images_u8, labels, mask)
+        loss, logits, grads = self._grads_on(batch, rect_attn, masked_attn)
+        _, labels, mask = batch
+        optim.sgd_step(self._optimizer, self.params, grads, lr)
+        self._text_f_cache = None
+        acc = torch.sum((logits.argmax(-1) == labels) * mask) / torch.sum(mask)
+        return loss, acc
+
+    def forward_backward(self, batch) -> dict:
+        """The engine's hook: one step on ``{"img", "label", "mask"}`` at
+        ``self.current_lr``; ``{"loss"}`` (and ``"acc"`` in percent where
+        ``log_acc``), device scalars."""
+        if self.current_lr is None:
+            raise RuntimeError("set current_lr (lr_at_epoch) before a train step")
+        loss, acc = self.train_step(batch["img"], batch["label"], batch["mask"], self.current_lr)
+        summary = {"loss": loss}
+        if self.log_acc:
+            summary["acc"] = 100.0 * acc
+        return summary
+
+    def get_optim_state(self, name: str):
+        """The momentum tree (zeros before the first update)."""
+        return optim.sgd_momentum(self._optimizer, self.params)
+
+    def set_optim_state(self, name: str, state) -> None:
+        """Install a checkpoint's momentum tree.  A resumed optimizer is
+        past its first update (step 1), which only dampening's first-buffer
+        rule reads."""
+        optim.sgd_state_from_numpy(self._optimizer, self.params, state, step=1)
 
     @torch.no_grad()
     def text_features(self):
@@ -126,6 +270,7 @@ class CLIPMethodTrainer:
         if self.params is None:
             self.params = as_f32(state)
             self._text_f_cache = None
+            self._reset_optimizer()
             return
         unexpected = sorted(k for k in state if k not in self.params)
         missing = sorted(k for k in self.params if k not in state)
@@ -156,3 +301,4 @@ class CLIPMethodTrainer:
         self.params = {k: install(k, old, state[k]) if k in state else old
                        for k, old in self.params.items()}
         self._text_f_cache = None
+        self._reset_optimizer()

@@ -1,4 +1,4 @@
-"""RPO: Read-only Prompt Optimization (ICCV 2023), evaluation side.
+"""RPO: Read-only Prompt Optimization (ICCV 2023).
 
 Port of ``rpo_tpu/methods/rpo.py``.  The method learns K text-prompt
 vectors (K, d_t) and K visual-prompt vectors (K, d_v) injected into a
@@ -12,7 +12,10 @@ the K prompt rows per class through the tower; the eval vision side runs
 the rect tower, where every row attends to the frozen rows only (the
 ``rect_attention`` kernel in every block, or, given ``vision_layer=
 fused_rect_residual_block``, one attention-half and one MLP-half kernel
-per block).  Training is not ported yet.
+per block).  Training runs the split vision tower
+(``encode_image_prompts_split``): the frozen rows without grad, the K
+prompt rows cross-attending to each layer's frozen K/V; ``rpo_loss`` is
+its cross-entropy.
 """
 from __future__ import annotations
 
@@ -32,7 +35,8 @@ from ..models.clip.layers import (
     residual_block_kv,
 )
 from ..models.clip.model import CLIPConfig, causal_mask, text_transformer_run, vision_embed
-from ..ops.attention import NEG_INF, Attention
+from ..ops.attention import NEG_INF, Attention, MaskedAttention
+from ..ops.masked_attention import masked_attention
 from ..ops.rect_attention import rect_attention
 from ..tokenizer import EOT_TOKEN, tokenize
 
@@ -166,14 +170,17 @@ def precompute_text_x(clip_params: Params, task: RPOTask) -> torch.Tensor:
     return emb + t["positional_embedding"].to(emb.dtype)
 
 
-def precompute_text_kv(clip_params: Params, task: RPOTask) -> Dict[str, torch.Tensor]:
+def precompute_text_kv(
+    clip_params: Params, task: RPOTask, masked_attn: MaskedAttention = masked_attention
+) -> Dict[str, torch.Tensor]:
     """Per-layer frozen-text K/V.
 
     The text mask blocks every column >= idx_c for every row, so frozen
     rows see exactly the plain causal context at every layer and prompt
     rows read only frozen columns.  Each layer's frozen K/V is computed
     once per task, truncated to T = max(len_prompts) columns (columns past
-    the longest real sequence are masked for every class).
+    the longest real sequence are masked for every class).  The causal
+    tower's attention is ``masked_attn`` (the kernel by default).
 
     Returns {"k", "v"}: (L_layers, n_cls, H, T, Dh).
     """
@@ -184,23 +191,30 @@ def precompute_text_kv(clip_params: Params, task: RPOTask) -> Dict[str, torch.Te
     kv_len = int(task.len_prompts.max())
     ks, vs = [], []
     for i in range(n_layers(t["blocks"])):
-        x, k, v = residual_block_kv(x, layer_params(t["blocks"], i), cfg.text_heads, bias)
+        x, k, v = residual_block_kv(x, layer_params(t["blocks"], i), cfg.text_heads, bias,
+                                    masked_attn=masked_attn)
         ks.append(k[:, :, :kv_len])
         vs.append(v[:, :, :kv_len])
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def make_frozen(clip_params: Params, task: RPOTask, cache_text_kv: bool = True) -> Params:
+def make_frozen(
+    clip_params: Params,
+    task: RPOTask,
+    cache_text_kv: bool = True,
+    masked_attn: MaskedAttention = masked_attention,
+) -> Params:
     """Bundle every non-trainable tensor the RPO forward reads.
 
-    cache_text_kv=True adds the per-layer frozen-text K/V cache, which
-    switches encode_text_with_prompts to the prompt-rows-only path;
-    False keeps what the masked text formulation reads instead.
+    cache_text_kv=True adds the per-layer frozen-text K/V cache (built on
+    ``masked_attn``), which switches encode_text_with_prompts to the
+    prompt-rows-only path; False keeps what the masked text formulation
+    reads instead.
     """
     device = clip_params["logit_scale"].device
     bundle = {"clip": clip_params}
     if cache_text_kv:
-        kv = precompute_text_kv(clip_params, task)
+        kv = precompute_text_kv(clip_params, task, masked_attn)
         bundle["text_kv"] = kv
         bundle["prompt_col_mask"] = torch.from_numpy(
             build_prompt_col_mask(task.len_prompts, kv["k"].shape[-2])
@@ -222,7 +236,9 @@ def encode_text_prompts_cached(prompts: Params, frozen: Params, task: RPOTask) -
 
     Prompt vectors REPLACE the embedded tokens at their positions, so they
     carry no positional embedding: the initial row state is the raw
-    prompt vector, identical across classes.
+    prompt vector, identical across classes (an ``expand``: under grad
+    the gradient sums over the classes).  The column-broadcast bias takes
+    the plain attention math, no kernel.
     """
     cfg = task.cfg
     t = frozen["clip"]["text"]
@@ -300,6 +316,43 @@ def encode_image_with_prompts(
     return torch.matmul(feats, v["proj"])
 
 
+def encode_image_prompts_split(
+    prompts: Params,
+    frozen: Params,
+    task: RPOTask,
+    images: torch.Tensor,
+    rect_attn: Attention = rect_attention,
+) -> torch.Tensor:
+    """Training-path vision tower: frozen rows and prompt rows split ->
+    prompt features (B, K, embed).
+
+    The visual mask blocks the K prompt columns for every row, so the
+    cls+patch rows see plain self-attention, independent of the prompts,
+    and the prompt rows read only frozen columns.  The (B, 197, d_v)
+    frozen rows run ``residual_block_kv`` under ``torch.no_grad()`` (the
+    JAX ``stop_gradient``); the (B, K, d_v) prompt rows run
+    ``cross_residual_block`` on that layer's k, v, so the backward covers
+    the K prompt rows only.  The same function as
+    ``encode_image_with_prompts``; both attentions are bias-free and go
+    to ``rect_attn``.
+    """
+    cfg = task.cfg
+    v = frozen["clip"]["visual"]
+    K = task.K
+    with torch.no_grad():
+        x_f = layer_norm(vision_embed(v, cfg, images), v["ln_pre"])  # (B, 197, d_v)
+    dtype = x_f.dtype
+    ip = prompts["img_prompt"].to(dtype)[None].expand(x_f.shape[0], K, cfg.vision_width)
+    x_p = layer_norm(ip, v["ln_pre"])
+    for i in range(n_layers(v["blocks"])):
+        blk = layer_params(v["blocks"], i)
+        with torch.no_grad():
+            x_f, k, v_heads = residual_block_kv(x_f, blk, cfg.vision_heads, None, rect_attn)
+        x_p = cross_residual_block(x_p, k, v_heads, blk, cfg.vision_heads, None, rect_attn)
+    feats = layer_norm(x_p, v["ln_post"])  # (B, K, d_v)
+    return torch.matmul(feats, v["proj"])
+
+
 def rpo_logits(
     prompts: Params,
     frozen: Params,
@@ -308,14 +361,22 @@ def rpo_logits(
     text_f: Optional[torch.Tensor] = None,
     rect_attn: Attention = rect_attention,
     vision_layer: Optional[VisionLayer] = None,
+    split_vision: bool = False,
 ) -> torch.Tensor:
     """(B, n_cls) classification logits: mean over K prompt pairs of the
     scaled cosine similarity.  Pass a precomputed ``text_f`` for
-    evaluation (the text tower runs once per task).  ``rect_attn`` and
-    ``vision_layer`` go to ``encode_image_with_prompts``."""
+    evaluation (the text tower runs once per task).  ``split_vision``
+    selects the training tower (``encode_image_prompts_split``), else
+    ``encode_image_with_prompts`` runs with ``vision_layer``;
+    ``rect_attn`` goes to either."""
     if text_f is None:
         text_f = encode_text_with_prompts(prompts, frozen, task)
-    img_f = encode_image_with_prompts(prompts, frozen, task, images, rect_attn, vision_layer)
+    if split_vision:
+        if vision_layer is not None:
+            raise ValueError("the split vision tower takes no vision_layer")
+        img_f = encode_image_prompts_split(prompts, frozen, task, images, rect_attn)
+    else:
+        img_f = encode_image_with_prompts(prompts, frozen, task, images, rect_attn, vision_layer)
     text_f = text_f.float()
     img_f = img_f.float()
     text_f = text_f / torch.linalg.vector_norm(text_f, dim=-1, keepdim=True)
@@ -323,3 +384,21 @@ def rpo_logits(
     scale = torch.exp(frozen["clip"]["logit_scale"].float())
     # mean over K of per-pair cosine logits == einsum / K
     return scale * torch.einsum("bke,cke->bc", img_f, text_f) / task.K
+
+
+def rpo_loss(
+    prompts: Params,
+    frozen: Params,
+    task: RPOTask,
+    images: torch.Tensor,
+    labels: torch.Tensor,
+    split_vision: bool = True,
+    rect_attn: Attention = rect_attention,
+):
+    """Cross-entropy over the batch; returns (loss, logits).  The split
+    vision tower by default: the training path."""
+    logits = rpo_logits(prompts, frozen, task, images, rect_attn=rect_attn,
+                        split_vision=split_vision)
+    log_probs = torch.log_softmax(logits, dim=-1)
+    loss = -log_probs.gather(-1, labels.long()[:, None]).mean()
+    return loss, logits

@@ -1,8 +1,11 @@
-"""RPO trainer, evaluation side.
+"""RPO trainer.
 
-Port of the eval half of ``rpo_tpu/methods/rpo_trainer.py``: the build
-(task, prompts, frozen bundle with the text K/V cache), the per-task text
-features and the eval step on uint8 images.  Training is not ported yet.
+Port of ``rpo_tpu/methods/rpo_trainer.py``: the build (task, prompts,
+frozen bundle with the text K/V cache), the per-task text features, the
+eval step on uint8 images, and the train step: each step's text features
+come from the live prompts through the cached text path, the logits from
+the split vision tower, under the base trainer's masked cross-entropy
+and SGD.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from .base_trainer import CLIPMethodTrainer
 
 class RPO(CLIPMethodTrainer):
     model_name = "prompt_learner"
+    log_acc = False  # the reference RPO logs only the loss
 
     def __init__(
         self,
@@ -30,8 +34,9 @@ class RPO(CLIPMethodTrainer):
         """``classnames`` and ``prompt_template`` ('_' is the classname
         slot) make the task; ``vision_layer`` (``fused_rect_residual_block``
         or its plain version) runs each block of the eval vision tower,
-        None keeps ``rect_residual_block``; ``kwargs`` go to
-        ``CLIPMethodTrainer`` (backbone, prec, seed, device, clip_params)."""
+        None keeps ``rect_residual_block`` (training always runs the split
+        tower); ``kwargs`` go to ``CLIPMethodTrainer`` (backbone, prec,
+        seed, device, clip_params, the SGD settings, microbatch)."""
         self.classnames = list(classnames)
         self.prompt_template = prompt_template
         self.K = int(K)
@@ -68,4 +73,15 @@ class RPO(CLIPMethodTrainer):
                 vision_layer=vision_layer,
             )
 
-        self._install_steps(text_features, eval_step)
+        # the text tower is the per-step work shared by microbatch chunks:
+        # once a step, on the live prompts, under grad; the cached text
+        # path reads no square bias, so masked_attn has nothing to replace
+        def precompute(params, frozen, masked_attn):
+            return core.encode_text_with_prompts(params, frozen, task)
+
+        def logits_fn(params, frozen, images_u8, text_f, rect_attn, masked_attn):
+            return core.rpo_logits(params, frozen, task, normalize(images_u8), text_f=text_f,
+                                   rect_attn=rect_attn, split_vision=True)
+
+        self._install_steps(text_features, eval_step,
+                            self._make_train_step(logits_fn, precompute))

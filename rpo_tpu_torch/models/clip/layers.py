@@ -126,12 +126,14 @@ def cross_residual_block(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Residual block whose attention reads precomputed (k, v) heads
     instead of self-attending: the query rows never contribute keys or
     values (the RPO read-only prompt rows)."""
     x = x + multihead_attention_cached(
-        layer_norm(x, params["ln_1"]), k, v, params["attn"], n_heads, bias
+        layer_norm(x, params["ln_1"]), k, v, params["attn"], n_heads, bias, rect_attn, masked_attn
     )
     x = x + mlp(layer_norm(x, params["ln_2"]), params["mlp"])
     return x

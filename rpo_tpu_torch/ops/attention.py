@@ -165,11 +165,15 @@ def multihead_attention_cached(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
+    rect_attn: Attention = rect_attention,
+    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Cross-attention of query rows x_q (B, Lq, D) against precomputed
     key/value heads k, v (B, H, Lk, Dh): only the q slice of the fused QKV
-    projection is computed."""
+    projection is computed.  Without a bias (the split vision tower's
+    prompt rows) it goes to ``rect_attn``; the cached text path's
+    column-broadcast bias takes the plain math."""
     D = x_q.shape[-1]
     q = _head_proj(x_q, params["qkv_w"][:, :D], params["qkv_b"][:D], n_heads)
-    out = dot_product_attention(q, k.to(x_q.dtype), v.to(x_q.dtype), bias)
+    out = dot_product_attention(q, k.to(x_q.dtype), v.to(x_q.dtype), bias, rect_attn, masked_attn)
     return _out_proj(out, params, x_q.dtype)

@@ -95,7 +95,7 @@ class _MaskedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
-        return (*ra._attention_bwd_math(q, k, v, bias, g), None)
+        return (*ra._attention_bwd_math(q, k, v, bias, g, ctx.needs_input_grad), None)
 
 
 def masked_attention(

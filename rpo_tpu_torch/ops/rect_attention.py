@@ -60,20 +60,25 @@ def rect_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) 
     return _softmax_attend(q, k, v)
 
 
-def _attention_bwd_math(q, k, v, bias, g):
+def _attention_bwd_math(q, k, v, bias, g, needs=(True, True, True)):
     """Softmax-recompute backward (``_attention_bwd_math``), shared by
-    both kernels (bias None for the rect one)."""
+    both kernels (bias None for the rect one).  ``needs`` (an autograd
+    Function's ``needs_input_grad`` for q, k, v) says which of dq, dk, dv
+    to compute; the others are None.  The split vision tower's prompt
+    rows read k and v made without grad, so they ask for dq alone."""
+    need_q, need_k, need_v = needs[:3]
     scale = q.shape[-1] ** -0.5
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
     w = torch.softmax(s, dim=-1)
-    w_v = w.to(v.dtype)
-    dv = torch.matmul(w_v.transpose(-1, -2), g)
+    dv = torch.matmul(w.to(v.dtype).transpose(-1, -2), g) if need_v else None
+    if not (need_q or need_k):
+        return None, None, dv
     dw = torch.matmul(g, v.transpose(-1, -2)).float()
     ds = (w * (dw - (dw * w).sum(dim=-1, keepdim=True))).to(q.dtype)
-    dq = torch.matmul(ds, k) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    dq = torch.matmul(ds, k) * scale if need_q else None
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale if need_k else None
     return dq, dk, dv
 
 
@@ -219,7 +224,7 @@ class _RectAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = ctx.saved_tensors
-        return _attention_bwd_math(q, k, v, None, g)
+        return _attention_bwd_math(q, k, v, None, g, ctx.needs_input_grad)
 
 
 def rect_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

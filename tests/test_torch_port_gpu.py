@@ -40,6 +40,19 @@ def _path_layout(gen, B, H, Lq, Lk, D, dtype):
     return q, kv[:, :H], kv[:, H:]
 
 
+def _train_layout(gen, B, H, Lq, Lk, D, dtype):
+    """q, k, v as the split vision tower hands them over: k and v head
+    views of the frozen rows' fused QKV output (B, Lk, 3*H*D); q from the
+    same output (frozen rows, Lq = Lk) or from the prompt rows' q
+    projection (B, Lq, H*D)."""
+    qkv = torch.randn(B, Lk, 3 * H * D, generator=gen, device="cuda").to(dtype)
+    qkv = qkv.view(B, Lk, 3, H, D).permute(2, 0, 3, 1, 4)
+    if Lq == Lk:
+        return qkv[0], qkv[1], qkv[2]
+    q = torch.randn(B, Lq, H * D, generator=gen, device="cuda").to(dtype)
+    return q.view(B, Lq, H, D).permute(0, 2, 1, 3), qkv[1], qkv[2]
+
+
 BF16 = torch.bfloat16
 
 
@@ -70,6 +83,10 @@ BF16 = torch.bfloat16
         ((2, 4, 17, 128, 128), BF16, 2e-2, "path"),
         ((2, 4, 33, 129, 128), BF16, 2e-2, "path"),
         ((2, 4, 17, 300, 128), BF16, 2e-2, "path"),
+        # the split vision tower of the RPO train step at batch 4: the
+        # frozen rows, and the 24 prompt rows over them
+        ((4, 12, 197, 197, 64), BF16, 2e-2, "train"),
+        ((4, 12, 24, 197, 64), BF16, 2e-2, "train"),
     ],
 )
 def test_kernel_matches_plain_version_on_gpu(shape, dtype, tol, layout):
@@ -79,6 +96,8 @@ def test_kernel_matches_plain_version_on_gpu(shape, dtype, tol, layout):
     gen = torch.Generator(device="cuda").manual_seed(0)
     if layout == "path":
         q, k, v = _path_layout(gen, B, H, Lq, Lk, D, dtype)
+    elif layout == "train":
+        q, k, v = _train_layout(gen, B, H, Lq, Lk, D, dtype)
     else:
         q, k, v = (
             torch.randn(B, H, n, D, generator=gen, device="cuda").to(dtype) for n in (Lq, Lk, Lk)
@@ -379,3 +398,49 @@ def test_fused_rect_halves_raise_on_what_they_do_not_take():
         frl.fused_rect_attn_half(x.clone().requires_grad_(True), blk["ln_1"], blk["attn"], 4, 9)
     with pytest.raises(RuntimeError, match="forward-only"):
         frl.fused_mlp_half(x.clone().requires_grad_(True), blk["ln_2"], blk["mlp"])
+
+
+@pytest.mark.gpu
+def test_rpo_train_step_kernels_against_plain_on_gpu():
+    """The RPO train step at TINY_W128 in bf16 on the card: the masked
+    kernel in the set-up, two rect launches a vision layer a step (frozen
+    rows, prompt rows); loss, logits and prompt gradients against the
+    same step fully on the plain versions (a K/V cache built with the
+    plain masked attention, the plain rect attention in the tower); then
+    three steps' losses.  Kernel and plain differ by bf16 rounding only:
+    loss and logits within 5e-2 (chip_smoke's bound for logits), each
+    gradient within 0.1 of its largest entry with a cosine >= 0.99."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.methods import rpo as core
+    from rpo_tpu_torch.methods.rpo_trainer import RPO
+
+    classnames = [f"object category {i}" for i in range(6)]
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (4, 32, 32, 3)).astype(np.uint8)
+    labels, mask = np.array([0, 3, 5, 1]), np.array([1, 1, 1, 0], np.float32)
+    masked0, rect0 = ma.launches, ra.launches
+    rpo = RPO(classnames, K=4, backbone="TINY_W128", prec="fp16", seed=1)
+    assert ma.launches - masked0 == rpo.clip_cfg.text_layers
+    loss, logits, grads = rpo.loss_and_grads(images, labels, mask)
+    torch.cuda.synchronize()
+    assert ra.launches - rect0 == 2 * rpo.clip_cfg.vision_layers
+    plain = RPO(classnames, K=4, backbone="TINY_W128", prec="fp16", seed=1)
+    plain._frozen = core.make_frozen(plain.clip_params, plain.task,
+                                     masked_attn=ma.masked_attention_reference)
+    refs = dict(rect_attn=ra.rect_attention_reference, masked_attn=ma.masked_attention_reference)
+    rect1 = ra.launches
+    p_loss, p_logits, p_grads = plain.loss_and_grads(images, labels, mask, **refs)
+    assert ra.launches == rect1  # the plain run launches nothing
+    assert bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (4, 6)
+    assert abs(loss.item() - p_loss.item()) <= 5e-2
+    assert (logits - p_logits).abs().max().item() <= 5e-2
+    for key, g in grads.items():
+        w = p_grads[key]
+        err = (g - w).abs().max().item() / w.abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
+        assert err <= 0.1 and cos >= 0.99, (key, err, cos)
+    for _ in range(3):
+        a = rpo.train_step(images, labels, mask, 0.01)[0].item()
+        b = plain.train_step(images, labels, mask, 0.01, **refs)[0].item()
+        assert abs(a - b) <= 5e-2

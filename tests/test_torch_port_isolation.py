@@ -42,6 +42,7 @@ def test_importing_the_port_loads_neither_jax_nor_rpo_tpu():
         "rpo_tpu_torch.methods.coop",  # the CoOp trainer lives beside its functions
         "rpo_tpu_torch.methods.zsclip",
         "rpo_tpu_torch.methods.templates",
+        "rpo_tpu_torch.engine.optim",  # SGD and lr_at_epoch, a copy of rpo_tpu's
     } <= set(modules)
     code = (
         "import importlib, sys\n"
