@@ -48,10 +48,13 @@
 // element by element on the accumulators' registers.
 // Shared memory (dynamic, above 48 KB) holds the LayerNorm output Y (rows x d
 // bf16) for the whole layer and, in turn, one head's q, k, v and f32 scores,
-// then the MLP's f32 down-projection accumulator beside one 128-wide hidden
-// chunk.  Where that accumulator does not fit (d = 768, or L = 80) the MLP
-// runs in P passes over column blocks of the output, recomputing the hidden
-// chunks (the host picks the least P that fits).  The residual stream x lives
+// then one 128-wide hidden chunk of the MLP.  The MLP's f32 down-projection
+// accumulator stays in registers over all the hidden chunks: each warp owns
+// 2 column tiles of it for the 4 row tiles of a 64-row block, and the
+// epilogue reads the registers.  Where a block has more than 64 rows (L =
+// 80) or d more than 32 column tiles (d = 768), the MLP runs in passes over
+// row blocks times column blocks, recomputing the hidden chunks for each
+// column block.  The residual stream x lives
 // in the output tensor in device memory, and the concatenated head outputs
 // in a scratch tensor the wrapper allocates ((N * L + kMaxRows) x d bf16),
 // copied into Y (dead by then) for the out projection.
@@ -75,6 +78,15 @@ constexpr int kTargetRows = 64;      // rows per block when L <= 64
 constexpr int kMaxRows = 80;         // one sequence of L <= 80
 constexpr int kMaxRowTiles = kMaxRows / kTile;
 constexpr int kMaxGroupTiles = (kMaxRowTiles + kRowGroups - 1) / kRowGroups;
+// The MLP runs in passes over blocks of its output, each with its f32
+// down-projection accumulator in registers: a pass takes kBlockRowTiles row
+// tiles and at most kBlockColTiles column tiles, warp w the column tiles w
+// and w + kWarps of the block for every row tile.
+constexpr int kBlockRowTiles = 4;
+constexpr int kProjCols = 2;
+constexpr int kBlockColTiles = kWarps * kProjCols;
+constexpr int kFcGroups = 4;         // fc's row groups (gemm_tiles), one row tile each
+constexpr int kProjDepth = 2;        // k-steps of B a warp loads ahead in the down-projection
 
 // Error codes beside cudaError_t's (which are >= 0).
 constexpr int kErrShape = -1;
@@ -95,16 +107,16 @@ struct Params {
   bf16* heads;         // (N * L + kMaxRows, d) scratch: concatenated head outputs
   const float* mask;   // (L, L) additive
   Weights w;
-  int N, L, d, n_heads, seqs, passes;
+  int N, L, d, n_heads, seqs;
   float scale, eps;
 };
 
 struct Layout {  // byte offsets into dynamic shared memory
   int rows, ldy, ldh;
-  size_t y, q, k, v, s, acc, hid, total;
+  size_t y, q, k, v, s, hid, total;
 };
 
-__host__ __device__ inline Layout layout(int seqs, int L, int d, int dh, int passes) {
+__host__ __device__ inline Layout layout(int seqs, int L, int d, int dh) {
   Layout o;
   o.rows = round_up(seqs * L, kTile);
   o.ldy = d + kPadBf16;
@@ -118,18 +130,83 @@ __host__ __device__ inline Layout layout(int seqs, int L, int d, int dh, int pas
   o.v = o.k + round_up((int)(sizeof(bf16) * R * o.ldh), 128);
   o.s = o.v + round_up((int)(sizeof(bf16) * R * o.ldh), 128);
   const size_t attn_end = o.s + sizeof(float) * R * L;
-  // MLP phase, over the same bytes: its f32 accumulator, then a hidden chunk
-  o.acc = region;
-  o.hid = o.acc + sizeof(float) * R * (d / passes + kPadF32);
-  const size_t mlp_end = region + mlp_bytes(o.rows, d, passes, kHidden);
+  // MLP phase, over the same bytes: one hidden chunk of a row block
+  o.hid = region;
+  const size_t block_rows = R < kBlockRowTiles * kTile ? R : kBlockRowTiles * kTile;
+  const size_t mlp_end = o.hid + sizeof(bf16) * block_rows * (kHidden + kPadBf16);
   o.total = attn_end > mlp_end ? attn_end : mlp_end;
   return o;
+}
+
+// The MLP's passes: row blocks of kBlockRowTiles tiles times column blocks
+// of at most kBlockColTiles tiles, all column blocks of one width.
+__host__ __device__ inline int col_blocks(int d) {
+  return (d / kTile + kBlockColTiles - 1) / kBlockColTiles;
+}
+__host__ __device__ inline int mlp_passes_of(int rows, int d) {
+  return (rows / kTile + kBlockRowTiles - 1) / kBlockRowTiles * col_blocks(d);
+}
+
+// acc += H @ B over nk k-steps for this warp's tiles: the mt (<=
+// kBlockRowTiles) row tiles of H (bf16, ld ldh, shared memory) times the
+// column tiles c0 + w + j * kWarps (j < kProjCols) that lie below c0 + nc,
+// of B (fragment-major, nb column tiles, at its first k-step), whose
+// fragments each lane loads kProjDepth k-steps ahead into registers.  The
+// accumulators stay in registers across calls: the products reach each
+// element in the k order of gemm_tiles with acc in shared memory.
+__device__ __forceinline__ void proj_registers(const bf16* H, int ldh, const bf16* B, int nb,
+                                               int nk, int mt, int c0, int nc,
+                                               float (&acc)[kBlockRowTiles][kProjCols][2][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bf16* a_lane = H + (size_t)(lane % 16) * ldh + (lane / 16) * 8;
+  const size_t k_stride = (size_t)nb * kTile * kTile / 8;  // uint4s from one k-step to the next
+  const uint4* b_lane[kProjCols];
+  bool has[kProjCols];
+#pragma unroll
+  for (int j = 0; j < kProjCols; ++j) {
+    has[j] = warp + j * kWarps < nc;
+    b_lane[j] = reinterpret_cast<const uint4*>(
+                    B + (size_t)(c0 + warp + j * kWarps) * kTile * kTile) + lane;
+  }
+  uint4 next[kProjDepth][kProjCols];
+#pragma unroll
+  for (int s = 0; s < kProjDepth; ++s)
+#pragma unroll
+    for (int j = 0; j < kProjCols; ++j)
+      if (has[j] && s < nk) next[s][j] = __ldg(b_lane[j] + s * k_stride);
+  for (int k = 0; k < nk; k += kProjDepth) {
+    uint4 cur[kProjDepth][kProjCols];
+#pragma unroll
+    for (int s = 0; s < kProjDepth; ++s)
+#pragma unroll
+      for (int j = 0; j < kProjCols; ++j) {
+        cur[s][j] = next[s][j];
+        if (has[j] && k + kProjDepth + s < nk)
+          next[s][j] = __ldg(b_lane[j] + (k + kProjDepth + s) * k_stride);
+      }
+#pragma unroll
+    for (int s = 0; s < kProjDepth; ++s) {
+      if (k + s >= nk) continue;
+#pragma unroll
+      for (int ii = 0; ii < kBlockRowTiles; ++ii) {
+        if (ii >= mt) continue;
+        uint32_t a[4];
+        ldmatrix_x4(a, a_lane + (size_t)ii * kTile * ldh + (k + s) * kTile);
+#pragma unroll
+        for (int j = 0; j < kProjCols; ++j) {
+          if (!has[j]) continue;
+          mma_16x8x16(acc[ii][j][0], a, cur[s][j].x, cur[s][j].y);
+          mma_16x8x16(acc[ii][j][1], a, cur[s][j].z, cur[s][j].w);
+        }
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int L = p.L, d = p.d, dh = d / p.n_heads;
-  const Layout lay = layout(p.seqs, L, d, dh, p.passes);
+  const Layout lay = layout(p.seqs, L, d, dh);
   const int seq0 = blockIdx.x * p.seqs;
   const int n_valid = min(p.seqs, p.N - seq0) * L;  // real rows of this block
   const int rows = lay.rows, mt = rows / kTile;
@@ -144,7 +221,6 @@ __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params
   bf16* K = reinterpret_cast<bf16*>(smem + lay.k);
   bf16* V = reinterpret_cast<bf16*>(smem + lay.v);
   float* S = reinterpret_cast<float*>(smem + lay.s);
-  float* ACC = reinterpret_cast<float*>(smem + lay.acc);
   bf16* H = reinterpret_cast<bf16*>(smem + lay.hid);
   const int ldh = lay.ldh, ldy = lay.ldy;
 
@@ -233,28 +309,84 @@ __global__ void __launch_bounds__(kThreads) fused_text_layer_kernel(const Params
 
   // ---- MLP half: x + proj(QuickGELU(fc(LN2(x)))) -------------------------
   layer_norm_rows(out, n_valid, rows, d, p.w.ln2_s, p.w.ln2_b, p.eps, Y, ldy);
-  __syncthreads();
-  mlp_passes<kRowGroups, kRowGroups, kMaxRowTiles, kHidden>(
-      Y, ldy, rows, n_valid, d, p.passes, p.w.fc_w, p.w.fc_b, p.w.proj_w, p.w.proj_b, ACC, H, out,
-      out);
+  const int n_cb = col_blocks(d), cbt = (d / kTile + n_cb - 1) / n_cb;
+  const int ldhid = kHidden + kPadBf16, lane = tid % 32, g = lane / 4, q = lane % 4;
+  for (int r0 = 0; r0 < rows; r0 += kBlockRowTiles * kTile) {
+    const int mt_b = min(kBlockRowTiles, (rows - r0) / kTile);
+    const bf16* Yb = Y + (size_t)r0 * ldy;
+    for (int c0 = 0; c0 < d / kTile; c0 += cbt) {
+      const int nc = min(cbt, d / kTile - c0);
+      float acc[kBlockRowTiles][kProjCols][2][4];
+#pragma unroll
+      for (int ii = 0; ii < kBlockRowTiles; ++ii)
+#pragma unroll
+        for (int j = 0; j < kProjCols; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[ii][j][h][e] = 0.f;
+      for (int chunk = 0; chunk < 4 * d; chunk += kHidden) {
+        __syncthreads();  // H is free (and Y written, before the first chunk)
+        // H = QuickGELU(Y @ Wfc[:, chunk] + b), rounding after every op
+        gemm_tiles<kFcGroups, 1>(
+            Yb, ldy, p.w.fc_w, 4 * d / kTile, d, kHidden / kTile, mt_b,
+            [&](int t) { return chunk / kTile + t; }, nullptr, 0,
+            [&](int r, int t, int cl, float v0, float v1) {
+              const int c = t * kTile + cl;
+              const float v[2] = {v0, v1};
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float hv = bf(bf(v[e]) + f(p.w.fc_b[chunk + c + e]));
+                const float t1 = bf(1.703125f * hv);  // 1.702 in bf16
+                const float ex = bf(expf(-t1));
+                const float den = bf(1.f + ex);
+                const float sig = bf(1.f / den);
+                H[r * ldhid + c + e] = __float2bfloat16(hv * sig);
+              }
+            });
+        __syncthreads();
+        proj_registers(H, ldhid, p.w.proj_w + (size_t)chunk * d, d / kTile, kHidden / kTile, mt_b,
+                       c0, nc, acc);
+      }
+      // out = x + (acc rounded, + bias rounded), straight from the registers
+#pragma unroll
+      for (int ii = 0; ii < kBlockRowTiles; ++ii)
+#pragma unroll
+        for (int j = 0; j < kProjCols; ++j)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+              const int r = r0 + ii * kTile + g + half * 8, t = warp + j * kWarps;
+              if (ii >= mt_b || t >= nc || r >= n_valid) continue;
+              const int c = (c0 + t) * kTile + h * 8 + q * 2;
+              const size_t e = (size_t)r * d + c;
+              const float o0 = bf(bf(acc[ii][j][h][2 * half]) + f(p.w.proj_b[c]));
+              const float o1 = bf(bf(acc[ii][j][h][2 * half + 1]) + f(p.w.proj_b[c + 1]));
+              out[e] = __float2bfloat16(f(out[e]) + o0);
+              out[e + 1] = __float2bfloat16(f(out[e + 1]) + o1);
+            }
+    }
+  }
 }
 
-// The least MLP pass count that fits, at the most sequences per block that
-// fit; 0 with the layout on success.
-int plan(int N, int L, int d, int dh, int max_smem, int* seqs, int* passes, Layout* lay) {
+// The most sequences per block that fit; 0 with the layout on success.
+int plan(int N, int L, int d, int dh, int max_smem, int* seqs, Layout* lay) {
   for (int s = L <= kTargetRows ? kTargetRows / L : 1; s >= 1; --s) {
-    for (int pc = 1; pc <= d / kTile; ++pc) {
-      if ((d / kTile) % pc) continue;
-      const Layout l = layout(s, L, d, dh, pc);
-      if (l.total <= (size_t)max_smem) {
-        *seqs = s < N ? s : N;
-        *passes = pc;
-        *lay = layout(*seqs, L, d, dh, pc);
-        return 0;
-      }
+    if (layout(s, L, d, dh).total <= (size_t)max_smem) {
+      *seqs = s < N ? s : N;
+      *lay = layout(*seqs, L, d, dh);
+      return 0;
     }
   }
   return kErrSharedMemory;
+}
+
+int check_shape(int N, int L, int d, int n_heads) {
+  if (N < 1 || L < 1 || L > kMaxRows || n_heads < 1 || d % n_heads || d > kMaxWidth)
+    return kErrShape;
+  const int dh = d / n_heads;
+  return dh == 32 || dh == 64 ? 0 : kErrShape;
 }
 
 }  // namespace
@@ -272,10 +404,9 @@ int fused_text_layer_forward(int device, const void* x, void* out, void* heads, 
                              const void* ln2_s, const void* ln2_b, const void* fc_w,
                              const void* fc_b, const void* proj_w, const void* proj_b, int N,
                              int L, int d, int n_heads, float scale, float eps, void* stream) {
-  if (N < 1 || L < 1 || L > kMaxRows || n_heads < 1 || d % n_heads || d > kMaxWidth)
-    return kErrShape;
+  int rc = check_shape(N, L, d, n_heads);
+  if (rc != 0) return rc;
   const int dh = d / n_heads;
-  if (dh != 32 && dh != 64) return kErrShape;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   int max_smem = 0;
@@ -283,7 +414,7 @@ int fused_text_layer_forward(int device, const void* x, void* out, void* heads, 
   if (err != cudaSuccess) return err;
   Params p;
   Layout lay;
-  const int rc = plan(N, L, d, dh, max_smem, &p.seqs, &p.passes, &lay);
+  rc = plan(N, L, d, dh, max_smem, &p.seqs, &lay);
   if (rc != 0) return rc;
   p.x = static_cast<const bf16*>(x);
   p.out = static_cast<bf16*>(out);
@@ -303,6 +434,28 @@ int fused_text_layer_forward(int device, const void* x, void* out, void* heads, 
   const int blocks = (N + p.seqs - 1) / p.seqs;
   fused_text_layer_kernel<<<blocks, kThreads, lay.total, static_cast<cudaStream_t>(stream)>>>(p);
   return cudaGetLastError();
+}
+
+// The launch plan of a call at (N, L, d, n_heads) on the device, into
+// out[5]: sequences a block, blocks, MLP passes, weight-ring stages (0: no
+// ring) and dynamic shared bytes a block.  Returns as the forward does.
+int fused_text_layer_plan(int device, int N, int L, int d, int n_heads, int* out) {
+  int rc = check_shape(N, L, d, n_heads);
+  if (rc != 0) return rc;
+  int max_smem = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return err;
+  int seqs = 0;
+  Layout lay;
+  rc = plan(N, L, d, d / n_heads, max_smem, &seqs, &lay);
+  if (rc != 0) return rc;
+  out[0] = seqs;
+  out[1] = (N + seqs - 1) / seqs;
+  out[2] = mlp_passes_of(lay.rows, d);
+  out[3] = 0;
+  out[4] = (int)lay.total;
+  return 0;
 }
 
 const char* fused_text_layer_error_string(int code) {

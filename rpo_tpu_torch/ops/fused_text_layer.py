@@ -132,6 +132,26 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+_PLAN_KEYS = ("seqs", "blocks", "passes", "stages", "shared_bytes")
+
+
+def launch_plan(N: int, L: int, d: int, n_heads: int, device: int = 0) -> dict:
+    """The kernel's launch plan for x of shape (N, L, d) on CUDA device
+    ``device``: sequences a block, blocks, the MLP's passes, the weight
+    ring's stages and the dynamic shared bytes a block, as the C side
+    computes them for the launch."""
+    lib = _lib()
+    fn = lib.fused_text_layer_plan
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(_PLAN_KEYS))()
+    rc = fn(device, N, L, d, n_heads, out)
+    if rc != 0:
+        raise ValueError(f"no launch plan for {(N, L, d)}, {n_heads} heads: "
+                         f"{lib.fused_text_layer_error_string(rc).decode()}")
+    return dict(zip(_PLAN_KEYS, out))
+
+
 def _check(x: torch.Tensor, weights, n_heads: int, mask: torch.Tensor) -> None:
     """Raise on anything the kernel does not take."""
     if x.dtype != torch.bfloat16:
