@@ -719,7 +719,9 @@ def main() -> int:
     x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
     causal = mask("causal", 1, L)[0, 0]
     with torch.no_grad():
-        fused_ms = call_ms(lambda: ftl.fused_text_layer(x, blk, heads, causal), 30)
+        fused_fn = lambda: ftl.fused_text_layer(x, blk, heads, causal)  # noqa: E731
+        fused_times = {"ms": call_ms(fused_fn, 30), "stream_ms": stream_ms(fused_fn, 30),
+                       "device_ms": device_ms(fused_fn, 30)}
         fused_plain_ms = call_ms(lambda: ftl.fused_text_layer_reference(x, blk, heads, causal), 10)
     # each input read once (x, the weights, the mask), the output written once;
     # FLOPs: the four projections (12 d^2 MACs a row) and the two attention products
@@ -728,10 +730,19 @@ def main() -> int:
     n_flops = 2 * N * L * 12 * d * d + 4 * N * heads * L * L * (d // heads)
     fused_bound_ms, fused_bound_by = bound(n_bytes, n_flops, bw, peak)
     print(f"time fused_text_layer ({N},{L},{d}) {heads} heads bf16 on {smi}: kernel "
-          f"{fused_ms:.4f} ms, plain {fused_plain_ms:.4f} ms, library none (no single PyTorch "
-          f"call computes a pre-LN block with QuickGELU and these roundings), bound "
+          f"{fused_times['ms']:.4f} ms a call (back to back {fused_times['stream_ms']:.4f}, device "
+          f"{fmt_ms(fused_times['device_ms'])}), plain {fused_plain_ms:.4f} ms, library none (no "
+          f"single PyTorch call computes a pre-LN block with QuickGELU and these roundings), bound "
           f"{fused_bound_ms:.4f} ms by {fused_bound_by} ({n_bytes / 1e6:.2f} MB, "
-          f"{n_flops / 1e9:.2f} GFLOP)", flush=True)
+          f"{n_flops / 1e9:.2f} GFLOP); kernel a call / bound "
+          f"{fused_times['ms'] / fused_bound_ms:.1f}", flush=True)
+    # its launch plan at the phase-3 shapes, and what ptxas said of its source
+    for _, shape in fused_checks:
+        print(f"plan fused_text_layer {shape[:3]} {shape[3]} heads: {ftl.launch_plan(*shape)}",
+              flush=True)
+    for ln in logs.get("fused_text_layer", "").splitlines():
+        if any(w in ln for w in ("registers", "spill", "smem")):
+            print(f"  ptxas fused_text_layer.cu: {ln.split(':', 1)[-1].strip()}")
 
     # the fused rect halves: each against its plain version, element by
     # element and in the mean, at the RPO eval layer, the square tower
@@ -1188,7 +1199,7 @@ def main() -> int:
         "launches": sum(fused_launches.values()),
         "launches_by_path": fused_launches,
         "max_abs_err": fused_err,
-        "ms": fused_ms,
+        **fused_times,
         "plain_ms": fused_plain_ms,
         "bound_ms": fused_bound_ms,
         "bound_by": fused_bound_by,

@@ -227,8 +227,8 @@ def _kernel_matrices(blk: dict, matrices=_MATRICES) -> dict:
     return made
 
 
-def _launch(x: torch.Tensor, blk: dict, n_heads: int, mask: torch.Tensor,
-            eps: float) -> torch.Tensor:
+def _launch(x: torch.Tensor, blk: dict, n_heads: int, mask: torch.Tensor, eps: float,
+            scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
     global launches
     weights = [blk[a][b] for a, b in _WEIGHTS]
     mask = mask.to(device=x.device, dtype=torch.float32).contiguous()
@@ -239,7 +239,8 @@ def _launch(x: torch.Tensor, blk: dict, n_heads: int, mask: torch.Tensor,
     N, L, d = x.shape
     lib = _lib()
     out = torch.empty_like(x)
-    scratch = torch.empty((N * L + _SCRATCH_ROWS, d), dtype=x.dtype, device=x.device)
+    if scratch is None:  # else a caller's, of this shape (tools/time_fused.py reads its tail)
+        scratch = torch.empty((N * L + _SCRATCH_ROWS, d), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_text_layer_forward(
         x.device.index, x.data_ptr(), out.data_ptr(), scratch.data_ptr(), mask.data_ptr(),

@@ -2,6 +2,7 @@
 
     python3 -m rpo_tpu_torch.tools.time_fused \\
         [--source LABEL=DIR/fused_text_layer.cu ...] [--rounds 2] [--json PATH]
+        [--phases]
 
 The variants: "this", the checkout's sources; each ``--source``, an
 earlier ``fused_text_layer.cu`` with the same C entry points (an earlier
@@ -21,6 +22,15 @@ max(|plain|, 1) each element, as phase 3 does), then the variants are timed
 in order and in reverse, ``--rounds`` times in all, on the three timers of
 ``timing``.  One line per reading, with the card's name and power limit;
 ``--json`` writes them all.
+
+``--phases`` also builds the checkout's ``fused_text_layer.cu`` with
+``-DFUSED_TEXT_PHASES`` and runs it at the CoCoOp chunk: thread 0 of block 0
+sums its SM clock by phase of the layer (set-up and LN1, q/k/v products,
+attention, out projection, LN2, fc products, QuickGELU, proj products, the
+MLP's epilogue), and each phase's share of the clocks is printed beside that
+share of the build's device time; then the clocks of three parts inside
+them (the weight ring's waits and barriers, the attention's scores and
+softmax).
 """
 from __future__ import annotations
 
@@ -170,6 +180,45 @@ def shapes(gen: torch.Generator, rect: bool):
            lambda: frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"]))
 
 
+PHASES = ("set-up and LN1", "q/k/v products", "attention", "out projection", "LN2",
+          "fc products", "QuickGELU", "proj products", "MLP epilogue")
+# clocks inside those phases
+EXTRAS = ("ring wait and barrier, within the products", "scores, within the attention",
+          "softmax, within the attention")
+
+
+def phase_clocks(lib: ctypes.CDLL, smi: str) -> List[dict]:
+    """The phase-clock build at the CoCoOp chunk: one reading per phase."""
+    N, L, d, heads = TEXT_SHAPES[0][1]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    blk = ftl.with_kernel_layout(text_block(gen, d))
+    x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+    i = torch.arange(L, device="cuda")
+    causal = torch.where(i[None, :] > i[:, None], -1e9, 0.0).float()
+    scratch = torch.empty((N * L + ftl._SCRATCH_ROWS, d), dtype=x.dtype, device="cuda")
+    use({"fused_text_layer": lib})
+    with torch.no_grad():
+        fn = lambda: ftl._launch(x, blk, heads, causal, 1e-5, scratch=scratch)  # noqa: E731
+        ms = device_ms(fn, N_CALLS)
+        fn()
+        torch.cuda.synchronize()
+    tail = scratch[N * L:].contiguous().view(torch.int64).flatten()
+    clocks = tail[:len(PHASES)].tolist()
+    extras = tail[len(PHASES):len(PHASES) + len(EXTRAS)].tolist()
+    total = sum(clocks)
+    out = []
+    for name, c in zip(PHASES, clocks):
+        share = c / total if total else 0.0
+        out.append({"phase": name, "clocks": c, "share": share,
+                    "device_ms": None if ms is None else share * ms})
+        print(f"phase {name} {(N, L, d)} on {smi}: {c} clocks of block 0, {share:.1%}, "
+              f"{fmt_ms(out[-1]['device_ms'])} of {fmt_ms(ms)}", flush=True)
+    for name, c in zip(EXTRAS, extras):
+        out.append({"phase": name, "clocks": c, "share": c / total if total else 0.0})
+        print(f"phase {name}: {c} clocks of block 0, {out[-1]['share']:.1%}", flush=True)
+    return out
+
+
 def worst_error(out: torch.Tensor, ref: torch.Tensor) -> float:
     """The largest error over its tolerance, 2e-2 x max(|plain|, 1)."""
     diff = (out.float() - ref.float()).abs()
@@ -181,6 +230,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--source", action="append", default=[], metavar="LABEL=PATH.cu")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path)
+    ap.add_argument("--phases", action="store_true")
     args = ap.parse_args(argv)
     specs = [parse_source(s) for s in args.source]
     if not torch.cuda.is_available():
@@ -195,7 +245,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                          check=True).stdout.strip().splitlines()[0]
     print(f"time_fused on {smi}, torch {torch.__version__} cuda {torch.version.cuda}; "
           f"variants {list(variants)}", flush=True)
+    if args.phases:
+        variants["phases"] = {"fused_text_layer": "#define FUSED_TEXT_PHASES\n"
+                              + variants["this"]["fused_text_layer"]}
     libs = build_variants(variants)
+    phase_lib = libs.pop("phases", {}).get("fused_text_layer")
     use(libs["this"])
     for label, (N, L, d, heads) in TEXT_SHAPES:
         print(f"plan this {(N, L, d)} {heads} heads: {ftl.launch_plan(N, L, d, heads)}",
@@ -229,9 +283,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     print(f"{label} {v} round {r} on {smi}: call {reading['call_ms']:.4f} ms, "
                           f"stream {reading['stream_ms']:.4f} ms, device "
                           f"{fmt_ms(reading['device_ms'])}", flush=True)
+    phases = phase_clocks(phase_lib, smi) if phase_lib is not None else []
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps({"card": smi, "readings": readings}, indent=1))
+        args.json.write_text(json.dumps({"card": smi, "readings": readings, "phases": phases},
+                                        indent=1))
     return 1 if failed else 0
 
 

@@ -258,6 +258,14 @@ def _text_block(gen, d):
         (13, 11, 64, 2),  # ragged N, L padded to 16 by the tower, head dim 32
         (4, 80, 512, 8),
         (3, 77, 768, 12),  # L padded to 80; the MLP in column passes
+        # the weight ring's edges: K (d = 64) shorter than a stage, head dim 64
+        (7, 16, 64, 1),
+        # 2 sequences of 24 a block (48 rows, 3 row tiles), N odd: the last
+        # block holds one
+        (9, 24, 512, 8),
+        (5, 16, 512, 16),  # head dim 32 at d = 512: 6 q/k/v tiles a head
+        (6, 16, 768, 12),  # d = 768 at 64 rows: two column blocks, a 3-stage ring
+        (2, 80, 768, 12),  # d = 768, L = 80: 2 x 2 passes, the smallest ring
     ],
 )
 def test_fused_text_layer_matches_plain_version_on_gpu(N, L, d, heads):
