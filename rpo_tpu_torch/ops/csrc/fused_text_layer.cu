@@ -35,14 +35,12 @@
 // <= 64 rows, or one sequence of up to 80 rows), so attention never crosses
 // a block, and the last block masks ragged N itself.  The four projections
 // run on the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulators in
-// registers), their A fragments from shared memory (ldmatrix), and every
-// product reaches each output element in the same k order as before the
-// weight ring and the register accumulator came in, so the output is the
-// same to the bit.
+// registers), their A fragments from shared memory (ldmatrix); every
+// product accumulates each output element over k in order, one mma a
+// k-step, whatever the warp split, the ring or the register blocking.
 // - Weights.  The block streams the layer's weights (6.3 MB at d = 512)
-//   through a ring in shared memory, each weight byte once per block (the
-//   two row groups of the earlier design each loaded every B fragment from
-//   L2).  The ring is a double buffer of two slots of up to 128 tiles (64
+//   through a ring in shared memory, each weight byte from L2 once per
+//   block.  The ring is a double buffer of two slots of up to 128 tiles (64
 //   KB each at the CoCoOp chunk): after one barrier a stage, all 512
 //   threads issue the 16-byte cp.async copies of the next stage, then the
 //   warps work on this one; cp.async.wait_group and the next barrier hand

@@ -82,8 +82,8 @@ def parse_source(spec: str) -> Tuple[str, Path]:
     label, sep, path = spec.partition("=")
     if not sep or not label or not path.endswith(".cu"):
         raise ValueError(f"--source takes LABEL=PATH.cu, got {spec!r}")
-    if label == "this":
-        raise ValueError('"this" names the checkout\'s sources')
+    if label in ("this", "phases"):
+        raise ValueError(f'"{label}" names a build of the checkout\'s sources')
     return label, Path(path)
 
 

@@ -50,7 +50,7 @@ def test_parse_source(spec, want):
 
 
 @pytest.mark.parametrize("spec", ["build/parent/fused_text_layer.cu", "=x.cu", "old=x.cuh",
-                                  "this=x.cu", "old="])
+                                  "this=x.cu", "phases=x.cu", "old="])
 def test_parse_source_refuses(spec):
     with pytest.raises(ValueError):
         tf.parse_source(spec)
@@ -72,3 +72,17 @@ def test_shapes_are_chip_smokes_fused_checks():
                   and getattr(node.targets[0], "id", None) == "fused_checks")
     assert [tuple(ast.literal_eval(e)) for e in checks.elts] == \
         [(label, shape) for label, shape in tf.TEXT_SHAPES]
+
+
+@pytest.mark.parametrize("enum,names", [("Phase", tf.PHASES), ("Extra", tf.EXTRAS)])
+def test_phase_names_follow_the_kernels_clocks(enum, names):
+    """The tool reads the kernel's phase clocks in the order of its enums:
+    one name per clock, so that an added phase cannot shift the report."""
+    import re
+
+    source = (_build.CSRC / "fused_text_layer.cu").read_text()
+    body = re.search(r"enum %s \{([^}]*)\}" % enum, source).group(1)
+    values = [v.strip() for v in body.split(",")]
+    assert values[-1].startswith("k") and len(values) - 1 == len(names)
+    # the clocks are written after the heads scratch's rows, kPhases then kExtras
+    assert "tail[kPhases + k] = extra_clocks[k]" in source
