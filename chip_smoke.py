@@ -746,13 +746,42 @@ def main() -> int:
 
     # the fused rect halves: each against its plain version, element by
     # element and in the mean, at the RPO eval layer, the square tower
-    # (n_kv = L) and a ragged small shape; one layer's params with nonzero
-    # biases and LayerNorm parameters other than (1, 0)
+    # (n_kv = L), a ragged small shape and the MLP half's GEMM edges; one
+    # layer's params with nonzero biases and LayerNorm parameters other
+    # than (1, 0)
     rect_checks = [
         ("RPO eval layer", (100, 221, 768, 12, 197)),
         ("square tower, n_kv = L", (100, 197, 768, 12, 197)),
         ("ragged small", (3, 37, 256, 4, 29)),
+        # the MLP half's GEMM edges: one row past a 128-row tile; d = 64,
+        # where proj's N fills half a 128-column block
+        ("129 rows", (3, 43, 768, 12, 40)),
+        ("d 64", (2, 64, 64, 1, 50)),
     ]
+    # the MLP half's launches at each shape, from the source's plan beside
+    # the wrapper's mirror of it, and what ptxas said of its kernels
+    import ctypes
+    rect_lib = frl._lib()
+    mlp_plans = {}
+    for label, (B, L, d, heads, n_kv) in rect_checks:
+        plan = mlp_plans[label] = frl.mlp_launch_plan(B * L, d)
+        got = (ctypes.c_longlong * 11)()
+        rc = rect_lib.fused_mlp_half_plan(B * L, d, got)
+        want = [plan["launches"]] + [plan[k][f] for k in ("ln2", "fc", "proj")
+                                     for f in ("grid", "threads", "shared_bytes")]
+        want.append(plan["scratch_elements"])
+        if rc != 0 or list(got) != want:
+            fail(f"fused_mlp_half_plan {(B * L, d)} gave {rc}, {list(got)}; "
+                 f"mlp_launch_plan {want}")
+        print(f"plan fused_mlp_half {label} {(B * L, d)} rows, d: {plan} (the source's plan "
+              f"agrees)", flush=True)
+    kernel_name = ""
+    for ln in logs.get("fused_rect_layer", "").splitlines():
+        if "entry function" in ln:
+            kernel_name = ln.split("'")[1] if "'" in ln else ln
+        elif "fused_mlp_half" in kernel_name and any(
+                w in ln for w in ("registers", "spill", "smem")):
+            print(f"  ptxas fused_rect_layer.cu {kernel_name}: {ln.split(':', 1)[-1].strip()}")
     rect_half_err = {}
     for label, (B, L, d, heads, n_kv) in rect_checks:
         raw = text_block(gen, d)
@@ -1215,8 +1244,11 @@ def main() -> int:
         **rect_times[what][rect_checks[0][0]],
         "library_ms": None,
         "square_197": {**rect_times[what][rect_checks[1][0]], "library_ms": None},
-    } for what, line, by_path in (("fused_rect_attn_half", 185, fused_rect_launches),
-                                  ("fused_mlp_half", 225, fused_mlp_launches))]}))
+        "cuda_launches_per_call": per_call,
+    } for what, line, by_path, per_call in (
+        ("fused_rect_attn_half", 185, fused_rect_launches, 1),
+        ("fused_mlp_half", 225, fused_mlp_launches,
+         mlp_plans[rect_checks[0][0]]["launches"]))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

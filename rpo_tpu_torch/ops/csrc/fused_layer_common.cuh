@@ -1,15 +1,14 @@
 // Device code shared by the fused layer kernels (fused_text_layer.cu and
 // fused_rect_layer.cu), for Hopper (sm_90a), bf16 only: the tensor-core
-// products over fragment-major weights, the f32 LayerNorm of a block's rows
-// and the MLP half (LN2 output -> fc -> QuickGELU -> proj -> residual).
+// products over fragment-major weights and the f32 LayerNorm of a block's
+// rows.
 //
 // Numerics are the TPU kernels' (rpo_tpu/ops/fused_text_layer.py
 // _layer_kernel, rpo_tpu/ops/fused_rect_layer.py _attn_half_kernel and
 // _mlp_half_kernel): LayerNorm in f32, two-pass, with the scale and bias
 // bf16 values taken to f32 and the result rounded to bf16; every projection
 // accumulated in f32 and rounded to bf16 BEFORE its bf16 bias is added (two
-// roundings); QuickGELU with a bf16 rounding after every op; residual adds
-// in bf16.  Each file that includes this header compiles on its own into
+// roundings).  Each file that includes this header compiles on its own into
 // its own library, so nothing here is shared at link time.
 #pragma once
 
@@ -210,73 +209,6 @@ __device__ inline void layer_norm_rows(const bf16* src, int n_valid, int rows, i
         y[c + 1] = __float2bfloat16(__fadd_rn(__fmul_rn(b, f(scale[c + 1])), f(bias[c + 1])));
       }
     }
-  }
-}
-
-// The bytes of the MLP half's shared memory for `rows` rows at width d in
-// `passes` column passes with `hidden`-wide hidden chunks, past LN2's
-// output: the f32 accumulator of one pass, then one hidden chunk.
-__host__ __device__ inline size_t mlp_bytes(int rows, int d, int passes, int hidden) {
-  return sizeof(float) * rows * (d / passes + kPadF32) +
-         sizeof(bf16) * rows * (hidden + kPadBf16);
-}
-
-// The MLP half over a block's rows once LN2's output of them is in Y (bf16,
-// ld ldy, `rows` = mt * 16 <= kMaxTiles * 16 rows, zero past n_valid): for
-// each of `passes` column blocks of the output (dc = d / passes wide), ACC
-// = 0, then per kHidden-wide hidden chunk H = QuickGELU(Y @ Wfc[:, chunk] +
-// b) and ACC += H @ Wproj[chunk, block], recomputing the hidden chunks in
-// every pass; then out = res + (ACC rounded, + bias rounded) for the n_valid
-// rows.  The two products split the row tiles into kFcGroups and
-// kProjGroups groups (gemm_tiles).  ACC (f32, rows x (dc + kPadF32)) and H
-// (bf16, rows x (kHidden + kPadBf16)) are shared memory, res and out device
-// memory at row stride d (they may be the same rows).  QuickGELU rounds
-// after every op, as the TPU bodies spell it: t = 1.703125 * h (1.702 in
-// bf16), e = exp(-t), den = 1 + e, sig = 1 / den, h * sig.
-template <int kFcGroups, int kProjGroups, int kMaxTiles, int kHidden>
-__device__ void mlp_passes(const bf16* Y, int ldy, int rows, int n_valid, int d, int passes,
-                           const bf16* fc_w, const bf16* fc_b, const bf16* proj_w,
-                           const bf16* proj_b, float* ACC, bf16* H, const bf16* res, bf16* out) {
-  constexpr int kFcTiles = (kMaxTiles + kFcGroups - 1) / kFcGroups;
-  constexpr int kProjTiles = (kMaxTiles + kProjGroups - 1) / kProjGroups;
-  const int tid = threadIdx.x, mt = rows / kTile;
-  const int dc = d / passes, ldacc = dc + kPadF32, ldhid = kHidden + kPadBf16;
-  for (int pass = 0; pass < passes; ++pass) {
-    const int c_out = pass * dc;
-    for (int idx = tid; idx < rows * dc; idx += kThreads)
-      ACC[(idx / dc) * ldacc + idx % dc] = 0.f;
-    for (int chunk = 0; chunk < 4 * d; chunk += kHidden) {
-      __syncthreads();  // H is free (and ACC zeroed) before it is written
-      gemm_tiles<kFcGroups, kFcTiles>(
-          Y, ldy, fc_w, 4 * d / kTile, d, kHidden / kTile, mt,
-          [&](int t) { return chunk / kTile + t; }, nullptr, 0,
-          [&](int r, int t, int cl, float v0, float v1) {
-            const int c = t * kTile + cl;
-            const float v[2] = {v0, v1};
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const float hv = bf(bf(v[e]) + f(fc_b[chunk + c + e]));
-              const float t1 = bf(1.703125f * hv);  // 1.702 in bf16
-              const float ex = bf(expf(-t1));
-              const float den = bf(1.f + ex);
-              const float sig = bf(1.f / den);
-              H[r * ldhid + c + e] = __float2bfloat16(hv * sig);
-            }
-          });
-      __syncthreads();
-      gemm_tiles<kProjGroups, kProjTiles>(
-          H, ldhid, proj_w + (size_t)chunk * d, d / kTile, kHidden, dc / kTile, mt,
-          [&](int t) { return c_out / kTile + t; }, ACC, ldacc,
-          [](int, int, int, float, float) {});
-    }
-    __syncthreads();
-    for (int idx = tid; idx < n_valid * dc; idx += kThreads) {
-      const int r = idx / dc, c = idx % dc;
-      const float o = bf(bf(ACC[r * ldacc + c]) + f(proj_b[c_out + c]));
-      const size_t e = (size_t)r * d + c_out + c;
-      out[e] = __float2bfloat16(f(res[e]) + o);
-    }
-    __syncthreads();
   }
 }
 

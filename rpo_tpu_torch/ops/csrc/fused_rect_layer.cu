@@ -1,5 +1,6 @@
-// The two halves of a bias-free rect transformer layer, each one launch, for
-// Hopper (sm_90a), plain C interface, bf16 only.
+// The two halves of a bias-free rect transformer layer, for Hopper (sm_90a),
+// plain C interface, bf16 only: the attention half one launch, the MLP half
+// three (LN2, fc, proj).
 //
 // Replaces the TPU kernels of rpo_tpu/ops/fused_rect_layer.py:
 //   fused_rect_attn_half (pallas_call at :185, body _attn_half_kernel
@@ -56,15 +57,37 @@
 //      the residual add into the output.
 // At 100 sequences that is 100 blocks on 132 SMs.  Attention is 12% of this
 // half's operations, hence the tensor cores there too.
-// The MLP half is the second half of the whole-layer text kernel on 64-row
-// blocks of the flattened rows (mlp_passes of fused_layer_common.cuh): LN2
-// in shared memory, 256-wide hidden chunks (16 column tiles, one per warp,
-// each for all four row tiles: one load of each weight fragment a block;
-// 12-20% faster than the text kernel's 128-wide chunks and split row tiles
-// at the RPO shape, the same outputs), an f32 down-projection accumulator
-// in shared memory, in column passes where it does not fit (two at d = 768,
-// which recompute the fc products once more; 227 KB exactly).  No TMA, no
-// wgmma and no shared-memory pipeline yet: a later PR's work.
+// The MLP half is three launches, two of them tensor-core GEMMs with the
+// contract's epilogues fused, over the flattened rows and a (rows, 5d) bf16
+// scratch the wrapper allocates:
+//   1. z = LN2(x) into the scratch, one warp a row (layer_norm_rows).  LN2
+//      is not folded into fc's prologue: fc's 128-row block would have to
+//      hold its z rows for all of K (128 x 776 x 2 = 198,656 B), one block
+//      an SM and no room for the ring, or normalise every A stage again on
+//      its way in, which cp.async cannot do;
+//   2. h = QuickGELU(bf(z @ Wfc) + b_fc) into the scratch, (rows, 4d);
+//   3. out = x + bf(bf(h @ Wproj) + b_proj).
+// Both products run fused_mlp_half_gemm_kernel: a 128 x 128 output tile a
+// block of 8 warps, 64 x 32 a warp (4 x 2 tiles of 16, 64 f32 accumulators
+// a thread in registers for the whole K loop), two blocks an SM (128
+// registers a thread).  A (row-major, rows padded by 8 bf16 so that
+// ldmatrix meets no bank conflict) and B (the fragment-major 512-byte tiles
+// the wrapper hands over: a lane's B fragments one 16-byte shared load)
+// come through a ring of kGemmStages stages of 32 k-columns, 16-byte
+// cp.async copies issued by every thread, one cp.async.wait_group and one
+// barrier a stage.  Per 16 k-columns a warp loads 4 A and 2 B fragments
+// for 16 mma.sync: 192 B of shared memory a product.  The epilogues work
+// from the accumulators; ragged rows load zeros (a copy of source size 0)
+// and store nothing.  Every output element adds its k-steps in ascending
+// order, one mma.sync m16n8k16 a k-step, from 0, as the 64-row
+// column-pass kernel before it did (whose f32 accumulator went through
+// shared memory, exactly), so the output is the same bit for bit.
+// At (22100, 768): fc is 173 x 24 = 4,152 tiles, proj 173 x 6 = 1,038, on
+// 264 block slots.  Bound: the 208.6 GFLOP above at mma.sync's rate; z and
+// h (170 MB written and read once) add 0.10 ms at 3.35 TB/s.  The fusion of
+// the TPU kernel kept h out of HBM; at 0.1 ms that costs less than the
+// recompute and the shared-memory traffic of keeping it on chip did.  No
+// TMA, no wgmma, no persistent grid yet.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (rpo_tpu_torch/ops/_build.py).
@@ -77,7 +100,6 @@ using namespace fused_layer;
 
 constexpr int kChunk = 64;                    // rows a block works on at a time
 constexpr int kChunkTiles = kChunk / kTile;
-constexpr int kHidden = 256;                  // MLP hidden columns per chunk: 16 column tiles
 constexpr int kDh = 64;                       // the head dim the attention half takes
 constexpr int kLdh = kDh + kPadBf16;          // row stride of K_h, V_h and the q tile
 constexpr int kMaxKeys = 256;
@@ -292,37 +314,215 @@ __global__ void __launch_bounds__(kThreads) fused_rect_attn_half_kernel(const At
   }
 }
 
-struct MlpParams {
-  const bf16* x;       // (rows, d)
-  bf16* out;           // (rows, d)
-  const bf16* ln2_s; const bf16* ln2_b;
-  const bf16* fc_w; const bf16* fc_b;     // (d, 4d) fragment-major, (4d,)
-  const bf16* proj_w; const bf16* proj_b; // (4d, d) fragment-major, (d,)
-  int rows, d, passes;
-  float eps;
+// ---- the MLP half: LN2, then two tensor-core GEMMs with fused epilogues --
+
+// The GEMM core (mlp_launch_plan in ops/fused_rect_layer.py mirrors these
+// constants): a block of kGemmThreads takes a kGemmRows x kGemmCols output
+// tile; its 8 warps, 2 down by 4 across, take 64 x 32 each (4 row tiles by
+// 2 column tiles of 16, 64 f32 accumulators a thread).  A and B come through
+// a ring of kGemmStages stages of kGemmK k-columns each.
+constexpr int kGemmRows = 128;
+constexpr int kGemmCols = 128;
+constexpr int kGemmK = 32;
+constexpr int kGemmStages = 2;
+constexpr int kGemmThreads = 256;
+constexpr int kGemmWarpRows = 64;
+constexpr int kGemmWarpCols = 32;
+constexpr int kGemmColWarps = kGemmCols / kGemmWarpCols;
+constexpr int kWarpRowTiles = kGemmWarpRows / kTile;
+constexpr int kWarpColTiles = kGemmWarpCols / kTile;
+constexpr int kLda = kGemmK + kPadBf16;  // A's row stride in a stage: ldmatrix without conflicts
+constexpr int kTileElems = kTile * kTile;  // one fragment-major B tile, 512 bytes
+constexpr int kStageA = sizeof(bf16) * kGemmRows * kLda;
+constexpr int kStageB = sizeof(bf16) * kGemmK * kGemmCols;
+constexpr int kStageBytes = kStageA + kStageB;
+constexpr int kGemmSmem = kGemmStages * kStageBytes;
+constexpr int kLnRows = kWarps;  // rows of an LN2 block of kThreads: one warp a row
+
+static_assert(kGemmThreads / 32 == (kGemmRows / kGemmWarpRows) * kGemmColWarps,
+              "the warps cover the block tile");
+static_assert(kGemmRows * kGemmK / 8 % kGemmThreads == 0, "A's 16-byte copies split evenly");
+static_assert(kGemmK * kGemmCols / 8 % kGemmThreads == 0, "B's 16-byte copies split evenly");
+
+enum Epilogue { kFcGelu, kProjResidual };
+
+struct GemmParams {
+  const bf16* A;     // (M, K) row-major
+  const bf16* B;     // (K, N) fragment-major
+  const bf16* bias;  // (N,)
+  const bf16* res;   // (M, N), the residual (proj only)
+  bf16* C;           // (M, N)
+  int M, N, K;
 };
 
-__host__ __device__ inline size_t mlp_y_bytes(int d) {
-  return sizeof(bf16) * kChunk * (d + kPadBf16);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from device memory into shared memory, or src_bytes of them (0:
+// zeros, nothing read) and zeros after.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
 }
 
-__global__ void __launch_bounds__(kThreads) fused_mlp_half_kernel(const MlpParams p) {
+// z = LN2(x), kLnRows rows a block, one warp a row.
+__global__ void __launch_bounds__(kThreads) fused_mlp_half_ln2_kernel(
+    const bf16* x, bf16* z, const bf16* scale, const bf16* bias, int rows, int d, float eps) {
+  const int first = blockIdx.x * kLnRows, n = min(kLnRows, rows - first);
+  layer_norm_rows(x + (size_t)first * d, n, n, d, scale, bias, eps, z + (size_t)first * d, d);
+}
+
+// One kGemmRows x kGemmCols tile of C = epilogue(A @ B).  Tile t of the
+// grid is row panel t / n_tiles, column block t % n_tiles: the blocks in
+// flight share their A rows in L2.  Ragged rows load zeros and store
+// nothing; a column block past N (N is a multiple of 64: only d = 64 ends
+// mid-block) leaves its warps without products.  Every output element
+// sums its k-steps in ascending order, one mma.sync a k-step, from 0.
+template <int kEpi>
+__global__ void __launch_bounds__(kGemmThreads, 2) fused_mlp_half_gemm_kernel(const GemmParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int d = p.d, ldy = d + kPadBf16;
-  const int first = blockIdx.x * kChunk;
-  const size_t row0 = first;
-  const int n_valid = min(kChunk, p.rows - first);
-  const int rows = round_up(n_valid, kTile);
-  bf16* Y = reinterpret_cast<bf16*>(smem);
-  float* ACC = reinterpret_cast<float*>(smem + mlp_y_bytes(d));
-  bf16* H = reinterpret_cast<bf16*>(smem + mlp_y_bytes(d) +
-                                    sizeof(float) * kChunk * (d / p.passes + kPadF32));
-  const bf16* x = p.x + row0 * d;
-  layer_norm_rows(x, n_valid, rows, d, p.ln2_s, p.ln2_b, p.eps, Y, ldy);
-  __syncthreads();
-  mlp_passes<1, 1, kChunkTiles, kHidden>(
-      Y, ldy, rows, n_valid, d, p.passes, p.fc_w, p.fc_b, p.proj_w, p.proj_b, ACC, H, x,
-      p.out + row0 * d);
+  const int n_tiles = (p.N + kGemmCols - 1) / kGemmCols;
+  const int row0 = blockIdx.x / n_tiles * kGemmRows, col0 = blockIdx.x % n_tiles * kGemmCols;
+  const int ncols = min(kGemmCols, p.N - col0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / kGemmColWarps, wn = warp % kGemmColWarps;
+  const bool active = wn * kGemmWarpCols < ncols;
+  const int nk = p.K / kGemmK, nb = p.N / kTile;
+  const uint32_t base = smem_addr(smem);
+
+  // stage kt into its slot: A's kGemmRows rows of kGemmK columns, 16 bytes
+  // a copy; B's kGemmK / 16 k-steps of the block's column tiles, each run
+  // of tiles contiguous in the fragment-major layout
+  auto load = [&](int kt) {
+    const uint32_t a_dst = base + kt % kGemmStages * kStageBytes, b_dst = a_dst + kStageA;
+#pragma unroll
+    for (int it = 0; it < kGemmRows * kGemmK / 8 / kGemmThreads; ++it) {
+      const int i = tid + it * kGemmThreads;
+      const int r = i / (kGemmK / 8), c = i % (kGemmK / 8), gr = row0 + r;
+      const bf16* src = p.A + (size_t)(gr < p.M ? gr : 0) * p.K + kt * kGemmK + c * 8;
+      cp_async16(a_dst + (r * kLda + c * 8) * 2, src, gr < p.M ? 16 : 0);
+    }
+#pragma unroll
+    for (int it = 0; it < kGemmK * kGemmCols / 8 / kGemmThreads; ++it) {
+      const int i = tid + it * kGemmThreads;
+      const int ks = i / (kGemmCols * kTile / 8), piece = i % (kGemmCols * kTile / 8);
+      if (piece / (kTileElems / 8) * kTile < ncols)
+        cp_async16(b_dst + i * 16, p.B + ((size_t)(kt * (kGemmK / kTile) + ks) * nb + col0 / kTile) *
+                                             kTileElems + piece * 8);
+    }
+  };
+
+  float c[kWarpRowTiles][2 * kWarpColTiles][4];
+#pragma unroll
+  for (int i = 0; i < kWarpRowTiles; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * kWarpColTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[i][j][e] = 0.f;
+  const uint32_t a_lane =
+      base + ((wm * kGemmWarpRows + lane % 16) * kLda + (lane / 16) * 8) * 2;
+  const uint32_t b_lane = base + kStageA + wn * kWarpColTiles * kTileElems * 2 + lane * 16;
+
+#pragma unroll
+  for (int s = 0; s < kGemmStages - 1; ++s) {
+    if (s < nk) load(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // stage kt has landed, and every warp is done with the slot that
+    // stage kt + kGemmStages - 1 takes
+    cp_async_wait<kGemmStages - 2>();
+    __syncthreads();
+    if (kt + kGemmStages - 1 < nk) load(kt + kGemmStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const uint32_t slot = kt % kGemmStages * kStageBytes;
+#pragma unroll
+    for (int ks = 0; ks < kGemmK / kTile; ++ks) {
+      uint4 b[kWarpColTiles];
+#pragma unroll
+      for (int j = 0; j < kWarpColTiles; ++j)
+        b[j] = lds128(b_lane + slot + (ks * (kGemmCols / kTile) + j) * kTileElems * 2);
+#pragma unroll
+      for (int i = 0; i < kWarpRowTiles; ++i) {
+        uint32_t a[4];
+        ldmatrix_x4_at(a, a_lane + slot + (i * kTile * kLda + ks * kTile) * 2);
+#pragma unroll
+        for (int j = 0; j < kWarpColTiles; ++j) {
+          mma_16x8x16(c[i][2 * j], a, b[j].x, b[j].y);
+          mma_16x8x16(c[i][2 * j + 1], a, b[j].z, b[j].w);
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  // the epilogue, from the accumulators: lane (g, q) holds rows g and g + 8
+  // of each row tile, columns 2q and 2q + 1 of each 8-column half
+  const int g = lane / 4, q = lane % 4;
+#pragma unroll
+  for (int i = 0; i < kWarpRowTiles; ++i)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row0 + wm * kGemmWarpRows + i * kTile + g + half * 8;
+      if (r >= p.M) continue;
+#pragma unroll
+      for (int j = 0; j < 2 * kWarpColTiles; ++j) {
+        const int col = col0 + wn * kGemmWarpCols + j * 8 + 2 * q;
+        const float v[2] = {c[i][j][2 * half], c[i][j][2 * half + 1]};
+        const size_t e = (size_t)r * p.N + col;
+        float o[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if constexpr (kEpi == kFcGelu) {
+            // h = QuickGELU(bf(z @ Wfc) + b_fc), rounded after every op
+            const float hv = bf(bf(v[k]) + f(p.bias[col + k]));
+            const float t1 = bf(1.703125f * hv);  // 1.702 in bf16
+            const float ex = bf(expf(-t1));
+            const float den = bf(1.f + ex);
+            const float sig = bf(1.f / den);
+            o[k] = hv * sig;
+          } else {
+            // out = x + bf(bf(h @ Wproj) + b_proj)
+            o[k] = f(p.res[e + k]) + bf(bf(v[k]) + f(p.bias[col + k]));
+          }
+        }
+        store_pair(p.C + e, o[0], o[1]);
+      }
+    }
+}
+
+// The grids of the MLP half's three launches at (rows, d); 0 or kErrShape.
+struct MlpPlan {
+  int ln2_grid, fc_grid, proj_grid;
+};
+int mlp_plan(int rows, int d, MlpPlan* plan) {
+  if (rows < 1 || d < 64 || d % 64 || d > kMaxWidth) return kErrShape;
+  const int m_tiles = (rows + kGemmRows - 1) / kGemmRows;
+  plan->ln2_grid = (rows + kLnRows - 1) / kLnRows;
+  plan->fc_grid = m_tiles * ((4 * d + kGemmCols - 1) / kGemmCols);
+  plan->proj_grid = m_tiles * ((d + kGemmCols - 1) / kGemmCols);
+  return 0;
 }
 
 cudaError_t max_shared_memory(int device, int* bytes) {
@@ -369,39 +569,62 @@ int fused_rect_attn_half_forward(int device, const void* x, void* out, void* qkv
   return cudaGetLastError();
 }
 
-// x, out: (rows, d) bf16, contiguous; LayerNorm parameters and biases bf16;
-// fc_w (d, 4d) and proj_w (4d, d) bf16 (in, out) in the fragment-major layout
-// of gemm_tiles, 16-byte aligned.  Takes d a multiple of 64 up to 768, rows >=
-// 1.  Returns as above.
-int fused_mlp_half_forward(int device, const void* x, void* out, const void* ln2_s,
-                           const void* ln2_b, const void* fc_w, const void* fc_b,
-                           const void* proj_w, const void* proj_b, int rows, int d, float eps,
-                           void* stream) {
-  if (rows < 1 || d < 64 || d % 64 || d > kMaxWidth) return kErrShape;
+// x, out: (rows, d) bf16, contiguous; scratch: rows x 5d bf16 (z = LN2(x),
+// rows x d, then h, rows x 4d); LayerNorm parameters and biases bf16; fc_w
+// (d, 4d) and proj_w (4d, d) bf16 (in, out) in the fragment-major layout of
+// gemm_tiles, 16-byte aligned.  Takes d a multiple of 64 up to 768, rows >=
+// 1.  Three launches on the stream: LN2, fc, proj.  Returns as above.
+int fused_mlp_half_forward(int device, const void* x, void* out, void* scratch,
+                           const void* ln2_s, const void* ln2_b, const void* fc_w,
+                           const void* fc_b, const void* proj_w, const void* proj_b, int rows,
+                           int d, float eps, void* stream) {
+  MlpPlan plan;
+  int rc = mlp_plan(rows, d, &plan);
+  if (rc != 0) return rc;
   int max_smem = 0;
   cudaError_t err = max_shared_memory(device, &max_smem);
   if (err != cudaSuccess) return err;
-  int passes = 0;  // the least column-pass count whose accumulator fits
-  for (int pc = 1; pc <= d / kTile && passes == 0; ++pc)
-    if ((d / kTile) % pc == 0 &&
-        mlp_y_bytes(d) + mlp_bytes(kChunk, d, pc, kHidden) <= (size_t)max_smem)
-      passes = pc;
-  if (passes == 0) return kErrSharedMemory;
-  const size_t smem = mlp_y_bytes(d) + mlp_bytes(kChunk, d, passes, kHidden);
-  MlpParams p;
-  p.x = static_cast<const bf16*>(x);
-  p.out = static_cast<bf16*>(out);
-  p.ln2_s = static_cast<const bf16*>(ln2_s); p.ln2_b = static_cast<const bf16*>(ln2_b);
-  p.fc_w = static_cast<const bf16*>(fc_w); p.fc_b = static_cast<const bf16*>(fc_b);
-  p.proj_w = static_cast<const bf16*>(proj_w); p.proj_b = static_cast<const bf16*>(proj_b);
-  p.rows = rows; p.d = d; p.passes = passes;
-  p.eps = eps;
-  err = cudaFuncSetAttribute(fused_mlp_half_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  if (kGemmSmem > max_smem) return kErrSharedMemory;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bf16* z = static_cast<bf16*>(scratch);
+  bf16* h = z + (size_t)rows * d;
+  fused_mlp_half_ln2_kernel<<<plan.ln2_grid, kThreads, 0, s>>>(
+      static_cast<const bf16*>(x), z, static_cast<const bf16*>(ln2_s),
+      static_cast<const bf16*>(ln2_b), rows, d, eps);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int blocks = (rows + kChunk - 1) / kChunk;
-  fused_mlp_half_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const GemmParams fc{z, static_cast<const bf16*>(fc_w), static_cast<const bf16*>(fc_b), nullptr,
+                      h, rows, 4 * d, d};
+  err = cudaFuncSetAttribute(fused_mlp_half_gemm_kernel<kFcGelu>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (err != cudaSuccess) return err;
+  fused_mlp_half_gemm_kernel<kFcGelu><<<plan.fc_grid, kGemmThreads, kGemmSmem, s>>>(fc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const GemmParams pr{h, static_cast<const bf16*>(proj_w), static_cast<const bf16*>(proj_b),
+                      static_cast<const bf16*>(x), static_cast<bf16*>(out), rows, d, 4 * d};
+  err = cudaFuncSetAttribute(fused_mlp_half_gemm_kernel<kProjResidual>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (err != cudaSuccess) return err;
+  fused_mlp_half_gemm_kernel<kProjResidual><<<plan.proj_grid, kGemmThreads, kGemmSmem, s>>>(pr);
   return cudaGetLastError();
+}
+
+// The launch plan of fused_mlp_half_forward at (rows, d), into out[11]: the
+// launches; grid, threads and dynamic shared bytes of LN2, of fc and of
+// proj; the scratch elements (mlp_launch_plan in ops/fused_rect_layer.py
+// is its mirror).  Returns 0 or kErrShape.
+int fused_mlp_half_plan(int rows, int d, long long* out) {
+  MlpPlan plan;
+  const int rc = mlp_plan(rows, d, &plan);
+  if (rc != 0) return rc;
+  const long long v[] = {3,
+                         plan.ln2_grid, kThreads, 0,
+                         plan.fc_grid, kGemmThreads, kGemmSmem,
+                         plan.proj_grid, kGemmThreads, kGemmSmem,
+                         5LL * rows * d};
+  for (int i = 0; i < (int)(sizeof(v) / sizeof(v[0])); ++i) out[i] = v[i];
+  return 0;
 }
 
 const char* fused_rect_layer_error_string(int code) {

@@ -9,14 +9,17 @@ rows only) with each residual half fused:
   out_proj(rect_attend(LN1(x))), q for all L rows, k and v for the first
   ``n_kv`` rows only;
 - ``fused_mlp_half(x, ln_2, mlp)``: x + proj(QuickGELU(fc(LN2(x)))) over
-  the flattened rows;
+  the flattened rows, three kernel launches a call (LN2, then fc and proj,
+  two tensor-core GEMMs with their epilogues fused, through a (rows, 5d)
+  scratch; ``mlp_launch_plan`` gives their grids and shared bytes);
 - ``fused_rect_residual_block(x, params, n_heads, n_kv)``: both.
 
-On a CUDA tensor each half launches its kernel in
+On a CUDA tensor each half launches its kernels in
 ``csrc/fused_rect_layer.cu`` or raises; on a CPU tensor it runs its plain
 version (``*_reference``), the same math in plain PyTorch.  There is no
 fallback from a kernel to its plain version.  ``attn_half_launches`` and
-``mlp_half_launches`` count the launches.  Both kernels are forward-only,
+``mlp_half_launches`` count the calls that launched (one attention-half
+launch a call; an MLP-half call is three launches).  Both kernels are forward-only,
 as the TPU ones are: the functions raise when grad is enabled and an input
 requires it.  The JAX switch ``RPO_TPU_FUSED_RECT`` has no counterpart: a
 caller passes the block function (``rpo.rpo_logits``' ``vision_layer``).
@@ -46,12 +49,23 @@ from .fused_text_layer import (_kernel_matrices, _refuse_grad, attend, ln_f32, p
                                quick_gelu_rounded)
 
 attn_half_launches = 0  # attention-half kernel launches since the count was last set to 0
-mlp_half_launches = 0   # MLP-half kernel launches since the count was last set to 0
+mlp_half_launches = 0   # MLP-half calls on the kernels (3 launches each) since then
 
 _HEAD_DIM = 64
 _MAX_WIDTH = 768
 _MAX_KV = 256
 _ERR_SHARED_MEMORY = -3
+# The MLP half's launch geometry, mirrored from csrc/fused_rect_layer.cu
+# (kGemmRows, kGemmCols, kGemmK, kGemmStages, kGemmThreads, kPadBf16,
+# kLnRows, kThreads), which names mlp_launch_plan as its mirror
+_GEMM_ROWS = 128
+_GEMM_COLS = 128
+_GEMM_K = 32
+_GEMM_STAGES = 2
+_GEMM_THREADS = 256
+_PAD_BF16 = 8
+_LN_ROWS = 16
+_LN_THREADS = 512
 _ATTN_WEIGHTS = (("ln_1", "scale"), ("ln_1", "bias"), ("attn", "qkv_w"), ("attn", "qkv_b"),
                  ("attn", "out_w"), ("attn", "out_b"))
 _MLP_WEIGHTS = (("ln_2", "scale"), ("ln_2", "bias"), ("mlp", "fc_w"), ("mlp", "fc_b"),
@@ -89,21 +103,46 @@ def fused_mlp_half_reference(x: torch.Tensor, ln_2: dict, mlp: dict,
     return x + proj(h, mlp["proj_w"], mlp["proj_b"])
 
 
+def mlp_launch_plan(rows: int, d: int) -> dict:
+    """The launches of one ``fused_mlp_half`` call on ``rows`` rows of width
+    ``d``, as ``fused_mlp_half_forward`` makes them: each launch's grid,
+    threads and dynamic shared bytes, and the scratch's bf16 elements
+    (z = LN2(x), then h).  ``fused_mlp_half_plan`` in the source computes
+    the same on the card."""
+    if rows < 1 or d < 64 or d % 64 or d > _MAX_WIDTH:
+        raise ValueError(f"(rows {rows}, d {d}): the kernels take rows >= 1 and d a multiple "
+                         f"of 64 up to {_MAX_WIDTH}")
+    m_tiles = -(-rows // _GEMM_ROWS)
+    stage = 2 * (_GEMM_ROWS * (_GEMM_K + _PAD_BF16) + _GEMM_K * _GEMM_COLS)
+    gemm = {"threads": _GEMM_THREADS, "shared_bytes": _GEMM_STAGES * stage}
+    return {
+        "launches": 3,
+        "ln2": {"grid": -(-rows // _LN_ROWS), "threads": _LN_THREADS, "shared_bytes": 0},
+        "fc": {"grid": m_tiles * -(-4 * d // _GEMM_COLS), **gemm},
+        "proj": {"grid": m_tiles * -(-d // _GEMM_COLS), **gemm},
+        "scratch_elements": 5 * rows * d,
+    }
+
+
+# argument and result types of the library's C entry points
+_SIGNATURES = {
+    "fused_rect_attn_half_forward": ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                                     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+                                     ctypes.c_int),
+    "fused_mlp_half_forward": ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                               + [ctypes.c_float, ctypes.c_void_p], ctypes.c_int),
+    "fused_mlp_half_plan": ([ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)],
+                            ctypes.c_int),
+    "fused_rect_layer_error_string": ([ctypes.c_int], ctypes.c_char_p),
+}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_rect_layer")
     if lib.fused_rect_attn_half_forward.argtypes is None:
-        lib.fused_rect_attn_half_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-        )
-        lib.fused_rect_attn_half_forward.restype = ctypes.c_int
-        lib.fused_mlp_half_forward.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-            + [ctypes.c_float, ctypes.c_void_p]
-        )
-        lib.fused_mlp_half_forward.restype = ctypes.c_int
-        lib.fused_rect_layer_error_string.argtypes = [ctypes.c_int]
-        lib.fused_rect_layer_error_string.restype = ctypes.c_char_p
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
@@ -187,12 +226,14 @@ def _launch_mlp(x, ln_2, mlp, eps, kernel) -> torch.Tensor:
     _check_mlp(x, [blk[a][b] for a, b in _MLP_WEIGHTS])
     weights = _kernel_weights(blk, _MLP_WEIGHTS, _MLP_MATRICES, kernel)
     d = x.shape[-1]
+    rows = x.numel() // d
     lib = _lib()
     out = torch.empty_like(x)
+    scratch = torch.empty(5 * rows * d, dtype=x.dtype, device=x.device)  # z, then h
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_mlp_half_forward(
-        x.device.index, x.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in weights),
-        x.numel() // d, d, eps, stream,
+        x.device.index, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        *(t.data_ptr() for t in weights), rows, d, eps, stream,
     )
     _raise_on(lib, rc, x, "fused_mlp_half")
     mlp_half_launches += 1

@@ -15,8 +15,13 @@ All are built at once with the package's nvcc flags, and run under the
 same wrappers (``ops/fused_text_layer.py``, ``ops/fused_rect_layer.py``).
 
 The shapes: ``fused_text_layer`` at the five shapes of ``chip_smoke.py``'s
-phase-3 checks, and ``fused_rect_attn_half`` and ``fused_mlp_half`` at
-(100, 221, 768) with n_kv 197.  At each shape the variants' outputs are
+phase-3 checks, ``fused_rect_attn_half`` at (100, 221, 768) with n_kv 197,
+and ``fused_mlp_half`` at (100, 221, 768), (3, 43, 768) (129 rows, one past
+a 128-row tile) and (2, 64, 64) (d = 64).  A variant's ``fused_mlp_half``
+runs through the wrapper where its library exports
+``fused_mlp_half_plan`` (the three-launch design, which takes a scratch
+argument); an earlier library's one-launch entry, which takes none, is
+called here through its own argument list.  At each shape the variants' outputs are
 first compared with ``torch.equal`` and held to the plain version (2e-2 x
 max(|plain|, 1) each element, as phase 3 does), then the variants are timed
 in order and in reverse, ``--rounds`` times in all, on the three timers of
@@ -42,7 +47,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -64,6 +69,17 @@ TEXT_SHAPES = [
     ("d 768, L 80: the MLP in column passes", (3, 80, 768, 12)),
 ]
 RECT_SHAPE = (100, 221, 768, 12, 197)  # B, L, d, heads, n_kv
+# (label, (B, L, d)) of fused_mlp_half
+MLP_SHAPES = [
+    ("the RPO eval layer", (100, 221, 768)),
+    ("129 rows, one past a 128-row tile", (3, 43, 768)),
+    ("d 64", (2, 64, 64)),
+]
+# the symbol only a library of the three-launch MLP half exports, and the
+# argument list of the one-launch entry before it (no scratch pointer)
+MLP_PLAN_SYMBOL = "fused_mlp_half_plan"
+ONE_LAUNCH_MLP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                           + [ctypes.c_float, ctypes.c_void_p])
 
 
 def inline_header(source: str, header: str) -> str:
@@ -130,13 +146,55 @@ def build_variants(variants: Dict[str, Dict[str, str]]) -> Dict[str, Dict[str, c
     return libs
 
 
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def mlp_half_call(lib) -> Callable[[torch.Tensor, dict], torch.Tensor]:
+    """``fused_mlp_half`` of one variant's rect-layer library, as fn(x,
+    blk): the wrapper's where the library exports ``MLP_PLAN_SYMBOL``, else
+    its one-launch entry through ``ONE_LAUNCH_MLP_ARGTYPES`` (no scratch)."""
+    if hasattr(lib, MLP_PLAN_SYMBOL):
+        return lambda x, blk: frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"],
+                                                 kernel=blk["kernel"])
+    entry = lib["fused_mlp_half_forward"]  # a function object of its own
+    entry.argtypes = ONE_LAUNCH_MLP_ARGTYPES
+    entry.restype = ctypes.c_int
+
+    def call(x: torch.Tensor, blk: dict) -> torch.Tensor:
+        weights = frl._kernel_weights(blk, frl._MLP_WEIGHTS, frl._MLP_MATRICES,
+                                      blk.get("kernel"))
+        d = x.shape[-1]
+        out = torch.empty_like(x)
+        rc = entry(x.device.index or 0, x.data_ptr(), out.data_ptr(),
+                   *(t.data_ptr() for t in weights), x.numel() // d, d, 1e-5, _stream(x))
+        if rc != 0:
+            raise RuntimeError(f"one-launch fused_mlp_half_forward returned {rc}")
+        return out
+
+    return call
+
+
+_mlp_call: Optional[Callable[[torch.Tensor, dict], torch.Tensor]] = None
+
+
 def use(libs: Dict[str, ctypes.CDLL]) -> None:
     """Make the wrappers launch from ``libs``."""
+    global _mlp_call
     for name, lib in libs.items():
         _build._loaded[name] = lib
     ftl._lib()  # each sets its argument types
     if "fused_rect_layer" in libs:
+        rect = libs["fused_rect_layer"]
+        if not hasattr(rect, MLP_PLAN_SYMBOL):
+            # a one-launch library: its other entries typed as the wrapper
+            # types them, so that the wrapper leaves it as it is
+            for name, (argtypes, restype) in frl._SIGNATURES.items():
+                if not name.startswith("fused_mlp_half"):
+                    fn = getattr(rect, name)
+                    fn.argtypes, fn.restype = argtypes, restype
         frl._lib()
+        _mlp_call = mlp_half_call(rect)
 
 
 def text_block(gen: torch.Generator, d: int) -> dict:
@@ -175,9 +233,13 @@ def shapes(gen: torch.Generator, rect: bool):
            lambda: frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], heads, n_kv,
                                             kernel=blk["kernel"]),
            lambda: frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"], heads, n_kv))
-    yield (f"fused_mlp_half {(B, L, d)}", "fused_rect_layer",
-           lambda: frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"], kernel=blk["kernel"]),
-           lambda: frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"]))
+    for label, (B, L, d) in MLP_SHAPES:
+        if d != blk["ln_2"]["scale"].shape[0]:
+            blk = ftl.with_kernel_layout(text_block(gen, d))
+        x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
+        yield (f"fused_mlp_half {label} {(B, L, d)}", "fused_rect_layer",
+               lambda x=x, b=blk: _mlp_call(x, b),
+               lambda x=x, b=blk: frl.fused_mlp_half_reference(x, b["ln_2"], b["mlp"]))
 
 
 PHASES = ("set-up and LN1", "q/k/v products", "attention", "out projection", "LN2",
@@ -254,6 +316,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     for label, (N, L, d, heads) in TEXT_SHAPES:
         print(f"plan this {(N, L, d)} {heads} heads: {ftl.launch_plan(N, L, d, heads)}",
               flush=True)
+    for label, (B, L, d) in MLP_SHAPES:
+        print(f"plan this fused_mlp_half {(B, L, d)}: {frl.mlp_launch_plan(B * L, d)}", flush=True)
     rect_ok = all("fused_rect_layer" in v for v in libs.values())
     gen = torch.Generator(device="cuda").manual_seed(0)
     readings, failed = [], False

@@ -17,6 +17,8 @@ PyTorch sum the LayerNorm and the 768- and 3072-deep products in other
 orders, so a few percent of the roundings flip, while a dropped bias of
 std 0.02 moves the mean by about 1.6e-2 (test_bf16_bounds_catch_a_dropped_bias).
 """
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,6 +39,7 @@ SHAPES = {
     "ragged-small": (3, 13, 128, 2, 9),  # odd B, rows not a multiple of 224 or 16
     "n_kv=L": (3, 13, 128, 2, 13),
     "ViT-B/16-layer": (2, 221, 768, 12, 197),
+    "129-rows": (3, 43, 128, 2, 40),  # one row past the MLP GEMMs' 128-row tile
 }
 
 
@@ -189,3 +192,74 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
     assert _build._target("k") != before
     (tmp_path / "h.cuh").write_text("// one\n")
     assert _build._target("k") == before
+
+
+# (rows, d): the RPO eval layer, one row past and exactly one 128-row GEMM
+# tile, d = 64 (proj's N half a 128-column block), a single row
+PLAN_CASES = {
+    (22100, 768): (1382, 4152, 1038),
+    (129, 768): (9, 48, 12),
+    (128, 768): (8, 24, 6),
+    (128, 64): (8, 2, 1),
+    (1, 64): (1, 2, 1),
+    (100, 192): (7, 6, 2),
+}
+
+
+@pytest.mark.parametrize("rows,d", list(PLAN_CASES))
+def test_mlp_launch_plan(rows, d):
+    """Three launches: LN2 16 rows a block; fc and proj 128 x 128 tiles,
+    row panels times column blocks; a (rows, 5d) scratch; every launch's
+    shared bytes within one block's 232,448."""
+    plan = frl.mlp_launch_plan(rows, d)
+    assert plan["launches"] == 3
+    assert (plan["ln2"]["grid"], plan["fc"]["grid"], plan["proj"]["grid"]) == PLAN_CASES[rows, d]
+    assert plan["scratch_elements"] == 5 * rows * d
+    assert (plan["ln2"]["threads"], plan["fc"]["threads"], plan["proj"]["threads"]) == (512, 256,
+                                                                                      256)
+    assert plan["ln2"]["shared_bytes"] == 0
+    for k in ("fc", "proj"):
+        assert 0 < plan[k]["shared_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("rows,d", [(0, 768), (10, 80), (10, 832), (10, 32)])
+def test_mlp_launch_plan_refuses_what_the_kernels_do_not_take(rows, d):
+    with pytest.raises(ValueError):
+        frl.mlp_launch_plan(rows, d)
+
+
+def _source_constants():
+    """Every namespace-level ``constexpr int`` of fused_layer_common.cuh,
+    then of fused_rect_layer.cu, evaluated in order (integer division, sizeof(bf16)
+    = 2)."""
+    import re
+
+    from rpo_tpu_torch.ops import _build
+
+    values = {}
+    for name in ("fused_layer_common.cuh", "fused_rect_layer.cu"):
+        text = (_build.CSRC / name).read_text()
+        for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text, re.M):
+            expr = expr.replace("sizeof(bf16)", "2").replace("/", "//")
+            values[key] = eval(expr, {}, dict(values))  # noqa: S307 - the repo's own source
+    return values
+
+
+def test_mlp_launch_plan_mirrors_the_source():
+    """mlp_launch_plan's constants are the .cu's, read from the source, and
+    its shared bytes are the source's kGemmSmem; each names the other."""
+    from rpo_tpu_torch.ops import _build
+
+    c = _source_constants()
+    assert (c["kGemmRows"], c["kGemmCols"], c["kGemmK"], c["kGemmStages"], c["kGemmThreads"],
+            c["kPadBf16"], c["kLnRows"], c["kThreads"]) == (
+        frl._GEMM_ROWS, frl._GEMM_COLS, frl._GEMM_K, frl._GEMM_STAGES, frl._GEMM_THREADS,
+        frl._PAD_BF16, frl._LN_ROWS, frl._LN_THREADS)
+    plan = frl.mlp_launch_plan(22100, 768)
+    assert plan["fc"]["shared_bytes"] == plan["proj"]["shared_bytes"] == c["kGemmSmem"]
+    # the warps cover the block tile: 8 warps of 64 x 32
+    assert c["kGemmThreads"] // 32 == (c["kGemmRows"] // c["kGemmWarpRows"]) * c["kGemmColWarps"]
+    source = (_build.CSRC / "fused_rect_layer.cu").read_text()
+    assert "mlp_launch_plan in ops/fused_rect_layer.py" in source
+    assert "int fused_mlp_half_plan(int rows, int d, long long* out)" in source
+    assert "csrc/fused_rect_layer.cu" in frl.__doc__ + Path(frl.__file__).read_text()

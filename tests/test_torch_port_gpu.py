@@ -330,6 +330,9 @@ def _fused_errors(got, want):
         (100, 221, 768, 12, 197),  # the RPO eval vision layer
         (100, 197, 768, 12, 197),  # n_kv = L: the square tower
         (3, 37, 256, 4, 29),  # ragged: rows not a multiple of 16 or 64
+        (3, 43, 768, 12, 40),  # 129 rows: one past the MLP GEMMs' 128-row tile
+        (2, 64, 768, 12, 64),  # 128 rows: exactly one tile
+        (2, 64, 64, 1, 50),  # d = 64: proj's N fills half a 128-column block
     ],
 )
 def test_fused_rect_halves_match_plain_versions_on_gpu(B, L, d, heads, n_kv):
