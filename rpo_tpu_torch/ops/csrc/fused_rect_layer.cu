@@ -73,21 +73,27 @@
 // registers a thread).  A (row-major, rows padded by 8 bf16 so that
 // ldmatrix meets no bank conflict) and B (the fragment-major 512-byte tiles
 // the wrapper hands over: a lane's B fragments one 16-byte shared load)
-// come through a ring of kGemmStages stages of 32 k-columns, 16-byte
-// cp.async copies issued by every thread, one cp.async.wait_group and one
-// barrier a stage.  Per 16 k-columns a warp loads 4 A and 2 B fragments
-// for 16 mma.sync: 192 B of shared memory a product.  The epilogues work
-// from the accumulators; ragged rows load zeros (a copy of source size 0)
-// and store nothing.  Every output element adds its k-steps in ascending
-// order, one mma.sync m16n8k16 a k-step, from 0, as the 64-row
-// column-pass kernel before it did (whose f32 accumulator went through
-// shared memory, exactly), so the output is the same bit for bit.
+// come through a ring of 3 stages of 64 k-columns (104,448 B a block),
+// 16-byte cp.async copies issued by every thread, one cp.async.wait_group
+// and one barrier a stage.  Per 16 k-columns a warp loads 4 A and 2 B
+// fragments for 16 mma.sync: 192 B of shared memory read a product, and
+// the ring writes 64 B more.  The epilogues work from the accumulators;
+// ragged rows load zeros (a copy of source size 0) and store nothing.
+// Every output element adds its k-steps in ascending order, one mma.sync
+// m16n8k16 a k-step, from 0, as the 64-row column-pass kernel before it did
+// (whose f32 accumulator went through shared memory, exactly), so the
+// output is the same bit for bit.
 // At (22100, 768): fc is 173 x 24 = 4,152 tiles, proj 173 x 6 = 1,038, on
-// 264 block slots.  Bound: the 208.6 GFLOP above at mma.sync's rate; z and
-// h (170 MB written and read once) add 0.10 ms at 3.35 TB/s.  The fusion of
-// the TPU kernel kept h out of HBM; at 0.1 ms that costs less than the
-// recompute and the shared-memory traffic of keeping it on chip did.  No
-// TMA, no wgmma, no persistent grid yet.
+// 264 block slots.  Bound: 208.6 GFLOP at 989 TFLOP/s, 0.211 ms; z and h
+// add 170 MB written and read once (0.10 ms at 3.35 TB/s), less than the
+// recompute and the shared-memory traffic that keeping h on chip cost the
+// 64-row kernel.  What bounds it (PERF.md, PR 10, tools/time_fused.py
+// --by-kernel): fc takes 0.49 ms (284 TFLOP/s with its QuickGELU), proj
+// 0.33 ms (211 TFLOP/s), LN2 0.036 ms.  mma.sync and the shared-memory
+// traffic above each allow about half the dense peak at this warp tile;
+// deeper rings, an L2 prefetch hint, 64 x 64 warp tiles (8 warps an SM)
+// and 256-wide block tiles were no faster.  No TMA, no wgmma, no
+// persistent grid yet.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (rpo_tpu_torch/ops/_build.py).
@@ -323,9 +329,10 @@ __global__ void __launch_bounds__(kThreads) fused_rect_attn_half_kernel(const At
 // a ring of kGemmStages stages of kGemmK k-columns each.
 constexpr int kGemmRows = 128;
 constexpr int kGemmCols = 128;
-constexpr int kGemmK = 32;
-constexpr int kGemmStages = 2;
+constexpr int kGemmK = 64;
+constexpr int kGemmStages = 3;
 constexpr int kGemmThreads = 256;
+constexpr int kGemmBlocksPerSm = 2;  // __launch_bounds__' minimum: 128 registers a thread
 constexpr int kGemmWarpRows = 64;
 constexpr int kGemmWarpCols = 32;
 constexpr int kGemmColWarps = kGemmCols / kGemmWarpCols;
@@ -399,7 +406,8 @@ __global__ void __launch_bounds__(kThreads) fused_mlp_half_ln2_kernel(
 // mid-block) leaves its warps without products.  Every output element
 // sums its k-steps in ascending order, one mma.sync a k-step, from 0.
 template <int kEpi>
-__global__ void __launch_bounds__(kGemmThreads, 2) fused_mlp_half_gemm_kernel(const GemmParams p) {
+__global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
+    fused_mlp_half_gemm_kernel(const GemmParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int n_tiles = (p.N + kGemmCols - 1) / kGemmCols;
   const int row0 = blockIdx.x / n_tiles * kGemmRows, col0 = blockIdx.x % n_tiles * kGemmCols;

@@ -60,8 +60,8 @@ _ERR_SHARED_MEMORY = -3
 # kLnRows, kThreads), which names mlp_launch_plan as its mirror
 _GEMM_ROWS = 128
 _GEMM_COLS = 128
-_GEMM_K = 32
-_GEMM_STAGES = 2
+_GEMM_K = 64
+_GEMM_STAGES = 3
 _GEMM_THREADS = 256
 _PAD_BF16 = 8
 _LN_ROWS = 16

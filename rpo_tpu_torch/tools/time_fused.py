@@ -2,7 +2,7 @@
 
     python3 -m rpo_tpu_torch.tools.time_fused \\
         [--source LABEL=DIR/fused_text_layer.cu ...] [--rounds 2] [--json PATH]
-        [--phases]
+        [--phases] [--only KERNEL ...]
 
 The variants: "this", the checkout's sources; each ``--source``, an
 earlier ``fused_text_layer.cu`` with the same C entry points (an earlier
@@ -17,25 +17,26 @@ same wrappers (``ops/fused_text_layer.py``, ``ops/fused_rect_layer.py``).
 The shapes: ``fused_text_layer`` at the five shapes of ``chip_smoke.py``'s
 phase-3 checks, ``fused_rect_attn_half`` at (100, 221, 768) with n_kv 197,
 and ``fused_mlp_half`` at (100, 221, 768), (3, 43, 768) (129 rows, one past
-a 128-row tile) and (2, 64, 64) (d = 64).  A variant's ``fused_mlp_half``
-runs through the wrapper where its library exports
-``fused_mlp_half_plan`` (the three-launch design, which takes a scratch
-argument); an earlier library's one-launch entry, which takes none, is
-called here through its own argument list.  At each shape the variants' outputs are
-first compared with ``torch.equal`` and held to the plain version (2e-2 x
-max(|plain|, 1) each element, as phase 3 does), then the variants are timed
-in order and in reverse, ``--rounds`` times in all, on the three timers of
-``timing``.  One line per reading, with the card's name and power limit;
-``--json`` writes them all.
+a 128-row tile) and (2, 64, 64) (d = 64). A variant's ``fused_mlp_half``
+runs through the wrapper where its library exports ``fused_mlp_half_plan``
+(the three-launch design, which takes a scratch argument); an earlier
+library's one-launch entry, which takes none, is called here through its own
+argument list. At each shape the variants' outputs are first compared with
+``torch.equal`` and held to the plain version (2e-2 x max(|plain|, 1) each
+element, as phase 3 does), then the variants are timed in order and in
+reverse, ``--rounds`` times in all, on the three timers of ``timing``. One
+line per reading, with the card's name and power limit; ``--json`` writes
+them all.
 
-``--phases`` also builds the checkout's ``fused_text_layer.cu`` with
-``-DFUSED_TEXT_PHASES`` and runs it at the CoCoOp chunk: thread 0 of block 0
-sums its SM clock by phase of the layer (set-up and LN1, q/k/v products,
-attention, out projection, LN2, fc products, QuickGELU, proj products, the
-MLP's epilogue), and each phase's share of the clocks is printed beside that
-share of the build's device time; then the clocks of three parts inside
-them (the weight ring's waits and barriers, the attention's scores and
-softmax).
+``--only`` keeps the shapes of the named kernels; ``--by-kernel`` also
+splits each device time by kernel (the MLP half's three launches). ``--phases`` also builds
+the checkout's ``fused_text_layer.cu`` with ``-DFUSED_TEXT_PHASES`` and runs
+it at the CoCoOp chunk: thread 0 of block 0 sums its SM clock by phase of
+the layer (set-up and LN1, q/k/v products, attention, out projection, LN2,
+fc products, QuickGELU, proj products, the MLP's epilogue), and each phase's
+share of the clocks is printed beside that share of the build's device time;
+then the clocks of three parts inside them (the weight ring's waits and
+barriers, the attention's scores and softmax).
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ import torch
 from ..ops import _build
 from ..ops import fused_rect_layer as frl
 from ..ops import fused_text_layer as ftl
-from .timing import call_ms, device_ms, fmt_ms, stream_ms
+from .timing import call_ms, device_ms, device_ms_by_kernel, fmt_ms, stream_ms
 
 HEADER = "fused_layer_common.cuh"
 INCLUDE = f'#include "{HEADER}"'
@@ -293,6 +294,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path)
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--by-kernel", action="store_true",
+                    help="also split each reading's device time by kernel")
+    ap.add_argument("--only", action="append", default=[], metavar="KERNEL",
+                    help="time only the shapes of these kernels (fused_text_layer, "
+                         "fused_rect_attn_half, fused_mlp_half)")
     args = ap.parse_args(argv)
     specs = [parse_source(s) for s in args.source]
     if not torch.cuda.is_available():
@@ -323,6 +329,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     readings, failed = [], False
     with torch.no_grad():
         for label, name, kernel, plain in shapes(gen, rect_ok):
+            if args.only and label.split()[0] not in args.only:
+                continue
             ref = plain()
             outs = {}
             for v, vlibs in libs.items():
@@ -347,6 +355,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                     print(f"{label} {v} round {r} on {smi}: call {reading['call_ms']:.4f} ms, "
                           f"stream {reading['stream_ms']:.4f} ms, device "
                           f"{fmt_ms(reading['device_ms'])}", flush=True)
+                    if args.by_kernel:
+                        split = reading["device_ms_by_kernel"] = device_ms_by_kernel(kernel,
+                                                                                     N_CALLS)
+                        for k, ms in sorted((split or {}).items(), key=lambda kv: -kv[1]):
+                            print(f"  {label} {v} round {r}: device {ms:.4f} ms in {k}",
+                                  flush=True)
     phases = phase_clocks(phase_lib, smi) if phase_lib is not None else []
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)

@@ -7,7 +7,8 @@
   so a kernel longer than its launch is timed alone, a shorter one shows
   the launch's cost;
 - ``device_ms``: the device time of the kernels the calls launch, under
-  ``torch.profiler``: no host time at all.
+  ``torch.profiler``: no host time at all (``device_ms_by_kernel``: the
+  same by kernel name).
 
 A kernel of a few microseconds reads several times apart on the three, so
 two versions are compared on one timer only, and within one process.
@@ -15,7 +16,7 @@ two versions are compared on one timer only, and within one process.
 from __future__ import annotations
 
 import statistics
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -68,6 +69,27 @@ def device_ms(fn: Callable[[], object], n: int) -> Optional[float]:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / n / 1e3
+    return None
+
+
+def device_ms_by_kernel(fn: Callable[[], object], n: int) -> Optional[Dict[str, float]]:
+    """``device_ms`` split by kernel name: the mean device ms a call of each
+    kernel ``fn()`` launches, over ``n`` calls; None where the profiler saw
+    no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        by_name = {e.key: e.self_device_time_total / n / 1e3 for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0}
+        if by_name:
+            return by_name
     return None
 
 
