@@ -66,6 +66,7 @@ rpo_tpu.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -760,7 +761,6 @@ def main() -> int:
     ]
     # the MLP half's launches at each shape, from the source's plan beside
     # the wrapper's mirror of it, and what ptxas said of its kernels
-    import ctypes
     rect_lib = frl._lib()
     mlp_plans = {}
     for label, (B, L, d, heads, n_kv) in rect_checks:

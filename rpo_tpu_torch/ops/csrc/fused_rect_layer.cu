@@ -402,9 +402,10 @@ __global__ void __launch_bounds__(kThreads) fused_mlp_half_ln2_kernel(
 // One kGemmRows x kGemmCols tile of C = epilogue(A @ B).  Tile t of the
 // grid is row panel t / n_tiles, column block t % n_tiles: the blocks in
 // flight share their A rows in L2.  Ragged rows load zeros and store
-// nothing; a column block past N (N is a multiple of 64: only d = 64 ends
-// mid-block) leaves its warps without products.  Every output element
-// sums its k-steps in ascending order, one mma.sync a k-step, from 0.
+// nothing.  N is a multiple of 64: where it is not one of 128 (proj at d
+// an odd multiple of 64), the last column block's right-hand warps have no
+// products.  Every output element sums its k-steps in ascending order, one
+// mma.sync a k-step, from 0.
 template <int kEpi>
 __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
     fused_mlp_half_gemm_kernel(const GemmParams p) {
@@ -434,9 +435,9 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
     for (int it = 0; it < kGemmK * kGemmCols / 8 / kGemmThreads; ++it) {
       const int i = tid + it * kGemmThreads;
       const int ks = i / (kGemmCols * kTile / 8), piece = i % (kGemmCols * kTile / 8);
+      const size_t tile = (size_t)(kt * (kGemmK / kTile) + ks) * nb + col0 / kTile;
       if (piece / (kTileElems / 8) * kTile < ncols)
-        cp_async16(b_dst + i * 16, p.B + ((size_t)(kt * (kGemmK / kTile) + ks) * nb + col0 / kTile) *
-                                             kTileElems + piece * 8);
+        cp_async16(b_dst + i * 16, p.B + tile * kTileElems + piece * 8);
     }
   };
 

@@ -16,17 +16,18 @@ rows only) with each residual half fused:
 
 On a CUDA tensor each half launches its kernels in
 ``csrc/fused_rect_layer.cu`` or raises; on a CPU tensor it runs its plain
-version (``*_reference``), the same math in plain PyTorch.  There is no
-fallback from a kernel to its plain version.  ``attn_half_launches`` and
+version (``*_reference``), the same math in plain PyTorch. There is no
+fallback from a kernel to its plain version. ``attn_half_launches`` and
 ``mlp_half_launches`` count the calls that launched (one attention-half
-launch a call; an MLP-half call is three launches).  Both kernels are forward-only,
-as the TPU ones are: the functions raise when grad is enabled and an input
-requires it.  The JAX switch ``RPO_TPU_FUSED_RECT`` has no counterpart: a
-caller passes the block function (``rpo.rpo_logits``' ``vision_layer``).
-The weight matrices go to the kernels in the fragment-major layout of
-``fused_text_layer.with_kernel_layout``: a block that carries it (made once
-by ``RPO.build_method``) hands it over, one without it is laid out at each
-launch.
+launch a call; an MLP-half call is three launches). Both kernels are
+forward-only, as the TPU ones are: the functions raise when grad is
+enabled and an input requires it. The JAX switch ``RPO_TPU_FUSED_RECT``
+has no counterpart: a caller passes the block function
+(``rpo.rpo_logits``' ``vision_layer``). The weight matrices go to the
+kernels in the fragment-major layout of
+``fused_text_layer.with_kernel_layout``: a block that carries it (made
+once by ``RPO.build_method``) hands it over, one without it is laid out at
+each launch.
 
 Numerics, in the order of the TPU bodies (``_attn_half_kernel``,
 ``_mlp_half_kernel``): LayerNorm in f32, two-pass, with the scale and bias
@@ -229,7 +230,8 @@ def _launch_mlp(x, ln_2, mlp, eps, kernel) -> torch.Tensor:
     rows = x.numel() // d
     lib = _lib()
     out = torch.empty_like(x)
-    scratch = torch.empty(5 * rows * d, dtype=x.dtype, device=x.device)  # z, then h
+    scratch = torch.empty(mlp_launch_plan(rows, d)["scratch_elements"], dtype=x.dtype,
+                          device=x.device)  # z = LN2(x), then h
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.fused_mlp_half_forward(
         x.device.index, x.data_ptr(), out.data_ptr(), scratch.data_ptr(),

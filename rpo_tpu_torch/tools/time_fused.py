@@ -28,15 +28,15 @@ reverse, ``--rounds`` times in all, on the three timers of ``timing``. One
 line per reading, with the card's name and power limit; ``--json`` writes
 them all.
 
-``--only`` keeps the shapes of the named kernels; ``--by-kernel`` also
-splits each device time by kernel (the MLP half's three launches). ``--phases`` also builds
-the checkout's ``fused_text_layer.cu`` with ``-DFUSED_TEXT_PHASES`` and runs
-it at the CoCoOp chunk: thread 0 of block 0 sums its SM clock by phase of
-the layer (set-up and LN1, q/k/v products, attention, out projection, LN2,
-fc products, QuickGELU, proj products, the MLP's epilogue), and each phase's
-share of the clocks is printed beside that share of the build's device time;
-then the clocks of three parts inside them (the weight ring's waits and
-barriers, the attention's scores and softmax).
+Where a call launches more than one kernel (the MLP half), its device time
+is also split by kernel. ``--only`` keeps the shapes of the named kernels.
+``--phases`` also builds the checkout's ``fused_text_layer.cu`` with
+``-DFUSED_TEXT_PHASES`` and runs it at the CoCoOp chunk: thread 0 of block 0
+sums its SM clock by phase of the layer (set-up and LN1, q/k/v products,
+attention, out projection, LN2, fc products, QuickGELU, proj products, the
+MLP's epilogue), and each phase's share of the clocks is printed beside that
+share of the build's device time; then the clocks of three parts inside them
+(the weight ring's waits and barriers, the attention's scores and softmax).
 """
 from __future__ import annotations
 
@@ -294,8 +294,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path)
     ap.add_argument("--phases", action="store_true")
-    ap.add_argument("--by-kernel", action="store_true",
-                    help="also split each reading's device time by kernel")
     ap.add_argument("--only", action="append", default=[], metavar="KERNEL",
                     help="time only the shapes of these kernels (fused_text_layer, "
                          "fused_rect_attn_half, fused_mlp_half)")
@@ -323,7 +321,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"plan this {(N, L, d)} {heads} heads: {ftl.launch_plan(N, L, d, heads)}",
               flush=True)
     for label, (B, L, d) in MLP_SHAPES:
-        print(f"plan this fused_mlp_half {(B, L, d)}: {frl.mlp_launch_plan(B * L, d)}", flush=True)
+        print(f"plan this fused_mlp_half {(B, L, d)}: {frl.mlp_launch_plan(B * L, d)}",
+              flush=True)
     rect_ok = all("fused_rect_layer" in v for v in libs.values())
     gen = torch.Generator(device="cuda").manual_seed(0)
     readings, failed = [], False
@@ -347,18 +346,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             for r in range(args.rounds):
                 for v in (list(libs) if r % 2 == 0 else list(libs)[::-1]):
                     use(libs[v])
+                    split = device_ms_by_kernel(kernel, N_CALLS)
                     reading = {"shape": label, "variant": v, "round": r,
                                "call_ms": call_ms(kernel, N_CALLS),
                                "stream_ms": stream_ms(kernel, N_CALLS),
-                               "device_ms": device_ms(kernel, N_CALLS)}
+                               "device_ms": None if split is None else sum(split.values()),
+                               "device_ms_by_kernel": split}
                     readings.append(reading)
                     print(f"{label} {v} round {r} on {smi}: call {reading['call_ms']:.4f} ms, "
                           f"stream {reading['stream_ms']:.4f} ms, device "
                           f"{fmt_ms(reading['device_ms'])}", flush=True)
-                    if args.by_kernel:
-                        split = reading["device_ms_by_kernel"] = device_ms_by_kernel(kernel,
-                                                                                     N_CALLS)
-                        for k, ms in sorted((split or {}).items(), key=lambda kv: -kv[1]):
+                    if split and len(split) > 1:  # the MLP half's launches
+                        for k, ms in sorted(split.items(), key=lambda kv: -kv[1]):
                             print(f"  {label} {v} round {r}: device {ms:.4f} ms in {k}",
                                   flush=True)
     phases = phase_clocks(phase_lib, smi) if phase_lib is not None else []

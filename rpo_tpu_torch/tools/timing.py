@@ -53,29 +53,17 @@ def stream_ms(fn: Callable[[], object], n: int, warmup: int = 3) -> float:
 
 def device_ms(fn: Callable[[], object], n: int) -> Optional[float]:
     """Mean device time a call of the kernels ``fn()`` launches, over ``n``
-    calls under torch.profiler.  A profiler window can come back without
-    its kernels: such a window is taken again, up to three times, and
-    after that the time is None (not measured)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
-            return us / n / 1e3
-    return None
+    calls under torch.profiler, or None (not measured): the sum of
+    ``device_ms_by_kernel``."""
+    by_kernel = device_ms_by_kernel(fn, n)
+    return None if by_kernel is None else sum(by_kernel.values())
 
 
 def device_ms_by_kernel(fn: Callable[[], object], n: int) -> Optional[Dict[str, float]]:
-    """``device_ms`` split by kernel name: the mean device ms a call of each
-    kernel ``fn()`` launches, over ``n`` calls; None where the profiler saw
-    no kernel."""
+    """The mean device ms a call of each kernel ``fn()`` launches, by kernel
+    name, over ``n`` calls under torch.profiler.  A profiler window can come
+    back without its kernels: such a window is taken again, up to three
+    times, and after that the result is None (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()

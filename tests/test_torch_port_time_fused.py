@@ -196,3 +196,41 @@ def test_mlp_shapes_are_chip_smokes_rect_checks():
     assert set(shapes) <= smoke
     assert (3, 43, 768) in shapes and (2, 64, 64) in shapes  # 129 rows; d = 64
     assert tf.RECT_SHAPE[:3] == shapes[0]
+
+
+def test_device_ms_is_the_sum_of_its_split_by_kernel(monkeypatch):
+    """The timers read the profiler's device events by kernel name, over the
+    calls; host events and empty kernels drop out; a window with no kernel
+    is taken again, then reported as not measured (None)."""
+    import types
+
+    import torch
+
+    from rpo_tpu_torch.tools import timing
+
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    events = [types.SimpleNamespace(key=k, device_type=t, self_device_time_total=us)
+              for k, t, us in (("fc", cuda, 3000.0), ("proj", cuda, 1000.0),
+                               ("host op", cpu, 50.0), ("empty", cuda, 0.0))]
+    windows = []
+
+    class Window:
+        def __enter__(self):
+            windows.append(self)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return events
+
+    monkeypatch.setattr(torch.profiler, "profile", lambda activities: Window())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    assert timing.device_ms_by_kernel(lambda: calls.append(1), 2) == {"fc": 1.5, "proj": 0.5}
+    assert len(calls) == 3 and len(windows) == 1  # one warm call, then the window's two
+    assert timing.device_ms(lambda: None, 2) == 2.0
+    events[:] = events[2:]
+    windows.clear()
+    assert timing.device_ms(lambda: None, 2) is None and len(windows) == 3
