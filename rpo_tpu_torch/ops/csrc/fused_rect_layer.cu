@@ -77,8 +77,11 @@
 // 16-byte cp.async copies issued by every thread, one cp.async.wait_group
 // and one barrier a stage.  Per 16 k-columns a warp loads 4 A and 2 B
 // fragments for 16 mma.sync: 192 B of shared memory read a product, and
-// the ring writes 64 B more.  The epilogues work from the accumulators;
-// ragged rows load zeros (a copy of source size 0) and store nothing.
+// the ring writes 64 B more.  The epilogues work from the accumulators in
+// bf16x2 ops, two columns an instruction, each rounding once to bf16 (the
+// f32 op's value rounded, since f32 carries more than 2 x 8 + 2 bits): the
+// QuickGELU fc takes 0.42 ms that way, 0.50 in f32 ops and roundings.
+// Ragged rows load zeros (a copy of source size 0) and store nothing.
 // Every output element adds its k-steps in ascending order, one mma.sync
 // m16n8k16 a k-step, from 0, as the 64-row column-pass kernel before it did
 // (whose f32 accumulator went through shared memory, exactly), so the
@@ -88,10 +91,10 @@
 // add 170 MB written and read once (0.10 ms at 3.35 TB/s), less than the
 // recompute and the shared-memory traffic that keeping h on chip cost the
 // 64-row kernel.  What bounds it (PERF.md, PR 10, tools/time_fused.py's
-// split by kernel): fc takes 0.49 ms, proj 0.33 ms, LN2 0.036 ms; each
-// GEMM is 104.3 GFLOP, so proj runs at 313 TFLOP/s and fc, with its
-// QuickGELU and 136 MB of h to store, at 211.  mma.sync and the shared-memory
-// traffic above each allow about half the dense peak at this warp tile;
+// split by kernel): fc takes 0.42 ms, proj 0.33 ms, LN2 0.036 ms; each
+// GEMM is 104.3 GFLOP, so proj runs at 314 TFLOP/s and fc, with its
+// QuickGELU and 136 MB of h to store, at 248.  mma.sync and the shared-
+// memory traffic above each allow about half the dense peak at this tile;
 // deeper rings, an L2 prefetch hint, 64 x 64 warp tiles (8 warps an SM)
 // and 256-wide block tiles were no faster.  No TMA, no wgmma, no
 // persistent grid yet.
@@ -346,7 +349,6 @@ constexpr int kStageB = sizeof(bf16) * kGemmK * kGemmCols;
 constexpr int kStageBytes = kStageA + kStageB;
 constexpr int kGemmSmem = kGemmStages * kStageBytes;
 constexpr int kLnRows = kWarps;  // rows of an LN2 block of kThreads: one warp a row
-constexpr int kGemmPackedEpilogue = 1;  // the epilogues in bf16x2 ops, or in f32 ops and roundings
 
 static_assert(kGemmThreads / 32 == (kGemmRows / kGemmWarpRows) * kGemmColWarps,
               "the warps cover the block tile");
@@ -501,42 +503,25 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
       for (int j = 0; j < 2 * kWarpColTiles; ++j) {
         const int col = col0 + wn * kGemmWarpCols + j * 8 + 2 * q;
         const size_t e = (size_t)r * p.N + col;
-        if constexpr (kGemmPackedEpilogue) {
-          // two columns a bf16x2 op, each op rounded once to bf16: the same
-          // value as the f32 op rounded, since f32 carries more than
-          // 2 x 8 + 2 significant bits
-          const __nv_bfloat162 acc =
-              __floats2bfloat162_rn(c[i][j][2 * half], c[i][j][2 * half + 1]);
-          const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
-          __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.C + e);
-          if constexpr (kEpi == kFcGelu) {
-            // h = QuickGELU(bf(z @ Wfc) + b_fc), rounded after every op
-            const __nv_bfloat162 hv = __hadd2(acc, b);
-            const float2 t1 = __bfloat1622float2(__hmul2(__float2bfloat162_rn(1.703125f), hv));
-            const __nv_bfloat162 ex = __floats2bfloat162_rn(expf(-t1.x), expf(-t1.y));
-            const float2 den = __bfloat1622float2(__hadd2(__float2bfloat162_rn(1.f), ex));
-            *dst = __hmul2(hv, __floats2bfloat162_rn(__frcp_rn(den.x), __frcp_rn(den.y)));
-          } else {
-            // out = x + bf(bf(h @ Wproj) + b_proj)
-            *dst = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(p.res + e), __hadd2(acc, b));
-          }
+        // two columns a bf16x2 op, each op rounded once to bf16: the same
+        // value as the f32 op rounded, since f32 carries more than 2 x 8 + 2
+        // significant bits
+        const __nv_bfloat162 acc =
+            __floats2bfloat162_rn(c[i][j][2 * half], c[i][j][2 * half + 1]);
+        const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
+        __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(p.C + e);
+        if constexpr (kEpi == kFcGelu) {
+          // h = QuickGELU(bf(z @ Wfc) + b_fc), rounded after every op: t =
+          // 1.703125 h (1.702 in bf16), e = exp(-t), den = 1 + e, sig =
+          // 1 / den (correctly rounded in f32, as 1.f / den), h * sig
+          const __nv_bfloat162 hv = __hadd2(acc, b);
+          const float2 t1 = __bfloat1622float2(__hmul2(__float2bfloat162_rn(1.703125f), hv));
+          const __nv_bfloat162 ex = __floats2bfloat162_rn(expf(-t1.x), expf(-t1.y));
+          const float2 den = __bfloat1622float2(__hadd2(__float2bfloat162_rn(1.f), ex));
+          *dst = __hmul2(hv, __floats2bfloat162_rn(__frcp_rn(den.x), __frcp_rn(den.y)));
         } else {
-          const float v[2] = {c[i][j][2 * half], c[i][j][2 * half + 1]};
-          float o[2];
-#pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            if constexpr (kEpi == kFcGelu) {
-              const float hv = bf(bf(v[k]) + f(p.bias[col + k]));
-              const float t1 = bf(1.703125f * hv);  // 1.702 in bf16
-              const float ex = bf(expf(-t1));
-              const float den = bf(1.f + ex);
-              const float sig = bf(1.f / den);
-              o[k] = hv * sig;
-            } else {
-              o[k] = f(p.res[e + k]) + bf(bf(v[k]) + f(p.bias[col + k]));
-            }
-          }
-          store_pair(p.C + e, o[0], o[1]);
+          // out = x + bf(bf(h @ Wproj) + b_proj)
+          *dst = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(p.res + e), __hadd2(acc, b));
         }
       }
     }
