@@ -90,8 +90,8 @@
 // 264 block slots.  Bound: 208.6 GFLOP at 989 TFLOP/s, 0.211 ms; z and h
 // add 170 MB written and read once (0.10 ms at 3.35 TB/s), less than the
 // recompute and the shared-memory traffic that keeping h on chip cost the
-// 64-row kernel.  What bounds it (PERF.md, PR 10, tools/time_fused.py's
-// split by kernel): fc takes 0.42 ms, proj 0.33 ms, LN2 0.036 ms; each
+// 64-row kernel.  What bounds it (PERF.md; tools/time_fused.py's split by
+// kernel, on an H100 SXM at 700 W): fc takes 0.42 ms, proj 0.33 ms, LN2 0.036 ms; each
 // GEMM is 104.3 GFLOP, so proj runs at 314 TFLOP/s and fc, with its
 // QuickGELU and 136 MB of h to store, at 248.  mma.sync and the shared-
 // memory traffic above each allow about half the dense peak at this tile;
