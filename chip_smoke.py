@@ -280,24 +280,28 @@ def text_block(gen, d: int) -> dict:
     }
 
 
-def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batch") -> None:
+def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batch",
+                      before=None) -> dict:
     """One more eval batch (or train step, ``what``) under torch.profiler:
     device time by kernel group, the device's idle share of its wall time
-    and the count of device operations."""
+    and the count of device operations.  ``before`` runs after the warm-up,
+    just before the profiled step.  Returns the device operations the
+    profiler saw, by group (empty where it saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     step(images)  # warm
     torch.cuda.synchronize()
+    if before is not None:
+        before()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         step(images)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
-    groups, n_ops = {}, 0
+    groups, counts = {}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        n_ops += evt.count
         us = evt.self_device_time_total
         n = evt.key.lower()
         group = ("fused_text_layer kernel" if "fused_text_layer" in n
@@ -312,15 +316,17 @@ def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batc
                  else "elementwise" if "elementwise" in n
                  else "other")
         groups[group] = groups.get(group, 0.0) + us
-    busy = sum(groups.values())
+        counts[group] = counts.get(group, 0) + evt.count
+    busy, n_ops = sum(groups.values()), sum(counts.values())
     if busy == 0:
         print(f"profile {label}: the profiler saw no device time (not measured)")
-        return
+        return {}
     parts = ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
                       for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
     print(f"profile {label} {what} on {smi}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}, {n_ops} device "
           f"operations (kernels and copies); {parts}", flush=True)
+    return counts
 
 
 def run_batches(step, batches):
@@ -1099,7 +1105,25 @@ def main() -> int:
     check_logits(label, logits, rpo_rect_logits,
                  against="phase 4's run (rect_residual_block on the rect kernel)")
     report_rate("RPO fused", setup_s, batch_s, smi)
-    profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO fused")
+    # the CUDA launches a call of each fused half makes, measured: the
+    # profiled batch's device operations of the half over the calls its
+    # wrapper counted in that batch
+    def zero_fused_counts():
+        frl.attn_half_launches = frl.mlp_half_launches = 0
+
+    seen = profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO fused",
+                             before=zero_fused_counts)
+    cuda_per_call = {}
+    for what, counter, want in (
+            ("fused_rect_attn_half", "attn_half_launches", 1),
+            ("fused_mlp_half", "mlp_half_launches", mlp_plans[rect_checks[0][0]]["launches"])):
+        calls, kernels = getattr(frl, counter), seen.get(f"{what} kernel", 0)
+        cuda_per_call[what] = kernels / calls if calls else None
+        print(f"RPO fused profiled batch: {kernels} {what} kernel launches on the device over "
+              f"{calls} calls, {cuda_per_call[what]} a call (the plan: {want})", flush=True)
+        if calls != n_layers or cuda_per_call[what] != want:
+            fail(f"RPO fused profiled batch: {what} made {kernels} kernel launches in {calls} "
+                 f"calls, expected {want} a call over {n_layers} calls")
     del rpo, plain
 
     # ---- 10. RPO ViT-B/16 bf16 training through the trainer -----------------
@@ -1244,11 +1268,9 @@ def main() -> int:
         **rect_times[what][rect_checks[0][0]],
         "library_ms": None,
         "square_197": {**rect_times[what][rect_checks[1][0]], "library_ms": None},
-        "cuda_launches_per_call": per_call,
-    } for what, line, by_path, per_call in (
-        ("fused_rect_attn_half", 185, fused_rect_launches, 1),
-        ("fused_mlp_half", 225, fused_mlp_launches,
-         mlp_plans[rect_checks[0][0]]["launches"]))]}))
+        "cuda_launches_per_call": cuda_per_call[what],
+    } for what, line, by_path in (("fused_rect_attn_half", 185, fused_rect_launches),
+                                  ("fused_mlp_half", 225, fused_mlp_launches))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 // Device code shared by the fused layer kernels (fused_text_layer.cu and
 // fused_rect_layer.cu), for Hopper (sm_90a), bf16 only: the tensor-core
-// products over fragment-major weights and the f32 LayerNorm of a block's
-// rows.
+// products over fragment-major weights, the f32 LayerNorm of a block's rows,
+// and the instructions of a cp.async ring.
 //
 // Numerics are the TPU kernels' (rpo_tpu/ops/fused_text_layer.py
 // _layer_kernel, rpo_tpu/ops/fused_rect_layer.py _attn_half_kernel and
@@ -61,6 +61,46 @@ __device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// Shared memory by 32-bit address (one register where a pointer takes two),
+// and the instructions of a cp.async ring.  In a namespace of their own:
+// fused_text_layer.cu and rect_attention.cu still define copies of some of
+// them under the same names.
+namespace ptx {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes from device memory into shared memory, or src_bytes of them (0:
+// zeros, nothing read) and zeros after.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most kPending of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+// fused_layer::ldmatrix_x4 by address.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+}  // namespace ptx
 
 // One warp's share of C = A @ B over a block's row tiles, on the tensor cores
 // (mma.sync m16n8k16, f32 accumulators): the warps split the mt row tiles

@@ -107,6 +107,7 @@
 namespace {
 
 using namespace fused_layer;
+using namespace fused_layer::ptx;
 
 constexpr int kChunk = 64;                    // rows a block works on at a time
 constexpr int kChunkTiles = kChunk / kTile;
@@ -366,36 +367,6 @@ struct GemmParams {
   int M, N, K;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 16 bytes from device memory into shared memory, or src_bytes of them (0:
-// zeros, nothing read) and zeros after.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes = 16) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-__device__ __forceinline__ uint4 lds128(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr));
-  return v;
-}
-__device__ __forceinline__ void ldmatrix_x4_at(uint32_t (&a)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(addr));
-}
-
 // z = LN2(x), kLnRows rows a block, one warp a row.
 __global__ void __launch_bounds__(kThreads) fused_mlp_half_ln2_kernel(
     const bf16* x, bf16* z, const bf16* scale, const bf16* bias, int rows, int d, float eps) {
@@ -479,7 +450,7 @@ __global__ void __launch_bounds__(kGemmThreads, kGemmBlocksPerSm)
 #pragma unroll
       for (int i = 0; i < kWarpRowTiles; ++i) {
         uint32_t a[4];
-        ldmatrix_x4_at(a, a_lane + slot + (i * kTile * kLda + ks * kTile) * 2);
+        ldmatrix_x4(a, a_lane + slot + (i * kTile * kLda + ks * kTile) * 2);
 #pragma unroll
         for (int j = 0; j < kWarpColTiles; ++j) {
           mma_16x8x16(c[i][2 * j], a, b[j].x, b[j].y);

@@ -2,7 +2,7 @@
 
     python3 -m rpo_tpu_torch.tools.time_fused \\
         [--source LABEL=DIR/fused_text_layer.cu ...] [--rounds 2] [--json PATH]
-        [--phases] [--only KERNEL ...]
+        [--phases]
 
 The variants: "this", the checkout's sources; each ``--source``, an
 earlier ``fused_text_layer.cu`` with the same C entry points (an earlier
@@ -29,7 +29,7 @@ line per reading, with the card's name and power limit; ``--json`` writes
 them all.
 
 Where a call launches more than one kernel (the MLP half), its device time
-is also split by kernel. ``--only`` keeps the shapes of the named kernels.
+is also split by kernel.
 ``--phases`` also builds the checkout's ``fused_text_layer.cu`` with
 ``-DFUSED_TEXT_PHASES`` and runs it at the CoCoOp chunk: thread 0 of block 0
 sums its SM clock by phase of the layer (set-up and LN1, q/k/v products,
@@ -294,9 +294,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path)
     ap.add_argument("--phases", action="store_true")
-    ap.add_argument("--only", action="append", default=[], metavar="KERNEL",
-                    help="time only the shapes of these kernels (fused_text_layer, "
-                         "fused_rect_attn_half, fused_mlp_half)")
     args = ap.parse_args(argv)
     specs = [parse_source(s) for s in args.source]
     if not torch.cuda.is_available():
@@ -328,8 +325,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     readings, failed = [], False
     with torch.no_grad():
         for label, name, kernel, plain in shapes(gen, rect_ok):
-            if args.only and label.split()[0] not in args.only:
-                continue
             ref = plain()
             outs = {}
             for v, vlibs in libs.items():
