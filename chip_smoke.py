@@ -15,7 +15,8 @@ Phases, one line each (any failure exits non-zero):
               synchronised, launch included), the plain version's, one
               PyTorch library call's and the card's bound (for the fused
               rect halves, the unfused port path's time instead of a
-              library call's; the masked kernel at L = 77, 24 and 16);
+              library call's, and each half's launch plan and device time
+              split by kernel; the masked kernel at L = 77, 24 and 16);
               for the attention kernels and SDPA also back-to-back calls
               and the device time alone (torch.profiler); the attention
               kernels' mean error against an f64 evaluation of their
@@ -47,10 +48,13 @@ Phases, one line each (any failure exits non-zero):
   8. flag     CoOp eval images/s with cuBLAS's reduced-precision bf16
               reduction off and on, in turns;
   9. RPO fused  RPO evaluation as in phase 4, with every vision layer one
-              fused attention-half and one fused MLP-half launch (36 each
-              for three batches, no rect launch, 12 masked in set-up);
-              logits against the same path on the plain halves and
-              against phase 4's logits; a profile;
+              fused attention-half call and one fused MLP-half call (36
+              each for three batches, no rect launch, 12 masked in
+              set-up); logits against the same path on the plain halves
+              and against phase 4's logits; a profile, whose batch must
+              show 4 CUDA launches a call of the attention half (LN1,
+              q/k/v, attention, out) and 3 of the MLP half (LN2, fc,
+              proj), as their launch plans say;
  10. RPO train  RPO training of ViT-B/16 in bf16 (K=24, 51 classes, batch
               4, float32 prompts, LR 0.01) through the trainer's train
               step: 12 masked launches in the set-up, 24 rect launches a
@@ -66,7 +70,6 @@ rpo_tpu.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import math
 import os
@@ -285,38 +288,44 @@ def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batc
     """One more eval batch (or train step, ``what``) under torch.profiler:
     device time by kernel group, the device's idle share of its wall time
     and the count of device operations.  ``before`` runs after the warm-up,
-    just before the profiled step.  Returns the device operations the
-    profiler saw, by group (empty where it saw no device time)."""
+    just before the profiled step.  A window with no device time is taken
+    again, up to three times (``before`` before each).  Returns the device
+    operations the profiler saw, by group (empty where it saw no device
+    time)."""
     from torch.profiler import ProfilerActivity, profile
 
     step(images)  # warm
     torch.cuda.synchronize()
-    if before is not None:
-        before()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        step(images)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t) * 1e6
-    groups, counts = {}, {}
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.self_device_time_total
-        n = evt.key.lower()
-        group = ("fused_text_layer kernel" if "fused_text_layer" in n
-                 else "fused_rect_attn_half kernel" if "fused_rect_attn_half" in n
-                 else "fused_mlp_half kernel" if "fused_mlp_half" in n
-                 else "masked_attention kernel" if "attention_kernel" in n and "true" in n
-                 else "rect_attention kernel" if "attention_kernel" in n
-                 else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90"))
-                 else "layer_norm" if "layer_norm" in n
-                 else "softmax/reduce" if any(w in n for w in ("softmax", "reduce"))
-                 else "copy/cast" if any(w in n for w in ("copy", "memcpy", "cat"))
-                 else "elementwise" if "elementwise" in n
-                 else "other")
-        groups[group] = groups.get(group, 0.0) + us
-        counts[group] = counts.get(group, 0) + evt.count
+    for _ in range(3):
+        if before is not None:
+            before()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            step(images)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        groups, counts = {}, {}
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = evt.self_device_time_total
+            n = evt.key.lower()
+            group = ("fused_text_layer kernel" if "fused_text_layer" in n
+                     else "fused_rect_attn_half kernel" if "fused_rect_attn_half" in n
+                     else "fused_mlp_half kernel" if "fused_mlp_half" in n
+                     else "masked_attention kernel" if "attention_kernel" in n and "true" in n
+                     else "rect_attention kernel" if "attention_kernel" in n
+                     else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet",
+                                                           "sm90"))
+                     else "layer_norm" if "layer_norm" in n
+                     else "softmax/reduce" if any(w in n for w in ("softmax", "reduce"))
+                     else "copy/cast" if any(w in n for w in ("copy", "memcpy", "cat"))
+                     else "elementwise" if "elementwise" in n
+                     else "other")
+            groups[group] = groups.get(group, 0.0) + us
+            counts[group] = counts.get(group, 0) + evt.count
+        if sum(groups.values()) > 0:
+            break
     busy, n_ops = sum(groups.values()), sum(counts.values())
     if busy == 0:
         print(f"profile {label}: the profiler saw no device time (not measured)")
@@ -460,7 +469,8 @@ def main() -> int:
     from rpo_tpu_torch.ops.attention import multihead_attention_rect
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
-    from rpo_tpu_torch.tools.timing import call_ms, device_ms, fmt_ms, stream_ms
+    from rpo_tpu_torch.tools.timing import (call_ms, device_ms, device_ms_by_kernel, fmt_ms,
+                                            stream_ms)
 
     # ---- 1. device --------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -753,7 +763,7 @@ def main() -> int:
 
     # the fused rect halves: each against its plain version, element by
     # element and in the mean, at the RPO eval layer, the square tower
-    # (n_kv = L), a ragged small shape and the MLP half's GEMM edges; one
+    # (n_kv = L), a ragged small shape and the two halves' edges; one
     # layer's params with nonzero biases and LayerNorm parameters other
     # than (1, 0)
     rect_checks = [
@@ -764,28 +774,25 @@ def main() -> int:
         # where proj's N fills half a 128-column block
         ("129 rows", (3, 43, 768, 12, 40)),
         ("d 64", (2, 64, 64, 1, 50)),
+        # the attention half's edges: L 13, four (b, h) a block of the
+        # attention, the last block ragged; n_kv 256, its widest score row
+        ("L 13", (3, 13, 128, 2, 9)),
+        ("n_kv 256", (2, 257, 128, 2, 256)),
     ]
-    # the MLP half's launches at each shape, from the source's plan beside
-    # the wrapper's mirror of it, and what ptxas said of its kernels
-    rect_lib = frl._lib()
-    mlp_plans = {}
+    # each half's launches at each shape (the wrapper's plans, which the CPU
+    # tests hold to the source's constants), and what ptxas said of the
+    # halves' kernels
+    plans = {}
     for label, (B, L, d, heads, n_kv) in rect_checks:
-        plan = mlp_plans[label] = frl.mlp_launch_plan(B * L, d)
-        got = (ctypes.c_longlong * 11)()
-        rc = rect_lib.fused_mlp_half_plan(B * L, d, got)
-        want = [plan["launches"]] + [plan[k][f] for k in ("ln2", "fc", "proj")
-                                     for f in ("grid", "threads", "shared_bytes")]
-        want.append(plan["scratch_elements"])
-        if rc != 0 or list(got) != want:
-            fail(f"fused_mlp_half_plan {(B * L, d)} gave {rc}, {list(got)}; "
-                 f"mlp_launch_plan {want}")
-        print(f"plan fused_mlp_half {label} {(B * L, d)} rows, d: {plan} (the source's plan "
-              f"agrees)", flush=True)
+        plans[label] = {"fused_rect_attn_half": frl.attn_launch_plan(B, L, d, heads, n_kv),
+                        "fused_mlp_half": frl.mlp_launch_plan(B * L, d)}
+        for what, plan in plans[label].items():
+            print(f"plan {what} {label} {(B, L, d)} n_kv {n_kv}: {plan}", flush=True)
     kernel_name = ""
     for ln in logs.get("fused_rect_layer", "").splitlines():
         if "entry function" in ln:
             kernel_name = ln.split("'")[1] if "'" in ln else ln
-        elif "fused_mlp_half" in kernel_name and any(
+        elif any(w in kernel_name for w in ("fused_mlp_half", "fused_rect_attn_half")) and any(
                 w in ln for w in ("registers", "spill", "smem")):
             print(f"  ptxas fused_rect_layer.cu {kernel_name}: {ln.split(':', 1)[-1].strip()}")
     rect_half_err = {}
@@ -853,7 +860,9 @@ def main() -> int:
     # timing at the RPO eval layer and the square tower, beside the plain
     # versions and the unfused port path on the card (layer_norm, the
     # projections on cuBLAS, the rect kernel, the residual adds), a yardstick
-    # the fused path never calls; no single PyTorch call computes either half
+    # the fused path never calls; no single PyTorch call computes either
+    # half.  A call (ms), back-to-back calls and the device time, split by
+    # kernel, of the half and of the unfused path
     rect_times = {}
     for label, (B, L, d, heads, n_kv) in rect_checks[:2]:
         blk = ftl.with_kernel_layout(text_block(gen, d))
@@ -882,17 +891,25 @@ def main() -> int:
                     n_x + mlp_w, mlp_flops),
             }
             for what, (kernel_fn, plain_fn, unfused_fn, n_bytes, n_flops) in runs.items():
-                ms = call_ms(kernel_fn, 30)
-                plain_ms = call_ms(plain_fn, 10)
-                unfused_ms = call_ms(unfused_fn, 30)
-                bound_ms, bound_by = bound(n_bytes, n_flops, bw, peak)
-                rect_times.setdefault(what, {})[label] = {
-                    "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by}
+                t = {"ms": call_ms(kernel_fn, 30), "stream_ms": stream_ms(kernel_fn, 30)}
+                split = t["device_ms_by_kernel"] = device_ms_by_kernel(kernel_fn, 30)
+                t["device_ms"] = None if split is None else sum(split.values())
+                t["plain_ms"] = call_ms(plain_fn, 10)
+                t["unfused_ms"] = call_ms(unfused_fn, 30)
+                t["unfused_stream_ms"] = stream_ms(unfused_fn, 30)
+                t["unfused_device_ms"] = device_ms(unfused_fn, 30)
+                t["bound_ms"], t["bound_by"] = bound(n_bytes, n_flops, bw, peak)
+                rect_times.setdefault(what, {})[label] = t
+                parts = ", ".join(f"{k} {ms:.4f}" for k, ms in sorted(
+                    (split or {}).items(), key=lambda kv: -kv[1]))
                 print(f"time {what} {label} {(B, L, d)} n_kv {n_kv} bf16 on {smi}: kernel "
-                      f"{ms:.4f} ms, plain {plain_ms:.4f} ms, unfused {unfused_ms:.4f} ms, "
-                      f"library none, bound {bound_ms:.4f} ms by {bound_by} "
-                      f"({n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.1f} GFLOP)", flush=True)
+                      f"{t['ms']:.4f} ms a call (back to back {t['stream_ms']:.4f}, device "
+                      f"{fmt_ms(t['device_ms'])}: {parts or 'not measured'}), plain "
+                      f"{t['plain_ms']:.4f} ms, unfused {t['unfused_ms']:.4f} ms a call (back to "
+                      f"back {t['unfused_stream_ms']:.4f}, device "
+                      f"{fmt_ms(t['unfused_device_ms'])}), library none, bound "
+                      f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({n_bytes / 1e6:.1f} MB, "
+                      f"{n_flops / 1e9:.1f} GFLOP)", flush=True)
         del runs
 
     # ---- the shared backbone and data --------------------------------------
@@ -1114,9 +1131,9 @@ def main() -> int:
     seen = profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO fused",
                              before=zero_fused_counts)
     cuda_per_call = {}
-    for what, counter, want in (
-            ("fused_rect_attn_half", "attn_half_launches", 1),
-            ("fused_mlp_half", "mlp_half_launches", mlp_plans[rect_checks[0][0]]["launches"])):
+    for what, counter in (("fused_rect_attn_half", "attn_half_launches"),
+                          ("fused_mlp_half", "mlp_half_launches")):
+        want = plans[rect_checks[0][0]][what]["launches"]
         calls, kernels = getattr(frl, counter), seen.get(f"{what} kernel", 0)
         cuda_per_call[what] = kernels / calls if calls else None
         print(f"RPO fused profiled batch: {kernels} {what} kernel launches on the device over "

@@ -64,8 +64,8 @@ __device__ __forceinline__ void mma_16x8x16(float (&c)[4], const uint32_t (&a)[4
 
 // Shared memory by 32-bit address (one register where a pointer takes two),
 // and the instructions of a cp.async ring.  In a namespace of their own:
-// fused_text_layer.cu and rect_attention.cu still define copies of some of
-// them under the same names.
+// fused_text_layer.cu still defines copies of some of them under the same
+// names.
 namespace ptx {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -250,6 +250,15 @@ __device__ inline void layer_norm_rows(const bf16* src, int n_valid, int rows, i
       }
     }
   }
+}
+
+// The body of a LayerNorm launch (fused_rect_layer.cu's LN1 and LN2): rows
+// of x (rows, d) into z (rows, d), both row-major at d, kWarps rows a block
+// of kThreads, one warp a row.
+__device__ __forceinline__ void layer_norm_launch(const bf16* x, bf16* z, const bf16* scale,
+                                                  const bf16* bias, int rows, int d, float eps) {
+  const int first = blockIdx.x * kWarps, n = min(kWarps, rows - first);
+  layer_norm_rows(x + (size_t)first * d, n, n, d, scale, bias, eps, z + (size_t)first * d, d);
 }
 
 }  // namespace fused_layer

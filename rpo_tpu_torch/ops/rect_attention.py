@@ -118,14 +118,14 @@ def _launch_error(lib: ctypes.CDLL, name: str, rc: int, Lk: int, q: torch.Tensor
     return RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
 
 
-def _shared_bytes(dtype: torch.dtype, Lk: int, D: int) -> int:
-    """One block's shared memory in ``csrc/rect_attention.cu`` (its
-    ``tc_smem_bytes`` for bf16 with one (b, h) a block, ``smem_bytes`` for
-    f32), which checks it again against the card's limit: a change to
-    either formula goes into both."""
+def _shared_bytes(dtype: torch.dtype, Lk: int, D: int, pack: int = 1) -> int:
+    """One block's shared memory in ``csrc/rect_attention.cu``
+    (``tc_smem_bytes`` of ``csrc/attention_tc.cuh`` for bf16 with ``pack``
+    (b, h) a block, ``smem_bytes`` for f32), which checks it again against
+    the card's limit: a change to either formula goes into both."""
     if dtype == torch.bfloat16:  # K and V padded to 16 rows, one 16-row Q tile per warp
         ld, nkp = D + 8, -(-Lk // 16) * 16
-        return 2 * (2 * nkp * ld + 4 * 16 * ld)
+        return 2 * (pack * 2 * nkp * ld + 4 * 16 * ld)
     ld = D + 4  # f32: Q (64 rows), K, V and the 64 x (Lk | 1) scores
     return 4 * ((64 + Lk) * ld + Lk * D + 64 * (Lk | 1))
 

@@ -17,8 +17,9 @@ wrappers (``ops/rect_attention.py``, ``ops/masked_attention.py``).
 The shapes: rect (100, 12, 221, 197, 64) in the eval tower's layout,
 (100, 12, 197, 197, 64) as the square towers hand it over, and masked
 (51, 8, L, L, 64) with the shared causal bias at L = 77, 24 and 16.  At
-each shape every variant is first held to the plain version (2e-2), then
-the variants and SDPA are timed in order and in reverse, ``--rounds``
+each shape every variant is first held to the plain version (2e-2) and
+compared with the checkout's build (``torch.equal``), then the variants
+and SDPA are timed in order and in reverse, ``--rounds``
 times in all, on the three timers of ``timing``.  One line per reading,
 with the card's name and power limit; ``--json`` writes them all.
 """
@@ -160,13 +161,17 @@ def main(argv: List[str] | None = None) -> int:
     readings = []
     for label, kernel, plain, sdpa in shapes(gen):
         ref = plain().float()
+        outs = {}
         for name, lib in libs.items():
             use(lib)
-            err = (kernel().float() - ref).abs().max().item()
-            print(f"{label} {name}: max_abs_err {err:.3e} (tol {TOL:g})", flush=True)
+            outs[name] = kernel()
+            err = (outs[name].float() - ref).abs().max().item()
+            print(f"{label} {name}: max_abs_err {err:.3e} (tol {TOL:g}), torch.equal to this "
+                  f"{torch.equal(outs[name], outs['this'])}", flush=True)
             if not err <= TOL:
                 print(f"FAIL: {label} {name} disagrees with the plain version", flush=True)
                 return 1
+        del outs
         order = list(libs) + ["SDPA"]
         for r in range(args.rounds):
             for name in (order if r % 2 == 0 else order[::-1]):

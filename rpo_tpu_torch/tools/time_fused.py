@@ -6,30 +6,29 @@
 
 The variants: "this", the checkout's sources; each ``--source``, an
 earlier ``fused_text_layer.cu`` with the same C entry points (an earlier
-commit's, written out with ``git show``).  A source's
-``#include "fused_layer_common.cuh"`` line is replaced by the text of the
-``fused_layer_common.cuh`` that lies beside it, so each variant builds
-from one file against its own header.  Where a ``fused_rect_layer.cu``
-lies beside it too, that variant's rect-layer halves are timed as well.
-All are built at once with the package's nvcc flags, and run under the
-same wrappers (``ops/fused_text_layer.py``, ``ops/fused_rect_layer.py``).
+commit's, written out with ``git show``).  Each ``#include "X.cuh"`` line
+of a source is replaced by the text of the ``X.cuh`` that lies beside it,
+so each variant builds from one file against its own headers.  Where a
+``fused_rect_layer.cu`` lies beside it too, that variant's rect-layer
+halves are timed as well.  All are built at once with the package's nvcc
+flags, and run under the same wrappers (``ops/fused_text_layer.py``,
+``ops/fused_rect_layer.py``): an earlier rect-layer library takes the same
+arguments, and its attention half, which needs a (B * L, 3d) scratch, uses
+the front of the (B * L, 4d) one the wrapper allocates.
 
 The shapes: ``fused_text_layer`` at the five shapes of ``chip_smoke.py``'s
 phase-3 checks, ``fused_rect_attn_half`` at (100, 221, 768) with n_kv 197,
 and ``fused_mlp_half`` at (100, 221, 768), (3, 43, 768) (129 rows, one past
-a 128-row tile) and (2, 64, 64) (d = 64). A variant's ``fused_mlp_half``
-runs through the wrapper where its library exports ``fused_mlp_half_plan``
-(the three-launch design, which takes a scratch argument); an earlier
-library's one-launch entry, which takes none, is called here through its own
-argument list. At each shape the variants' outputs are first compared with
-``torch.equal`` and held to the plain version (2e-2 x max(|plain|, 1) each
-element, as phase 3 does), then the variants are timed in order and in
-reverse, ``--rounds`` times in all, on the three timers of ``timing``. One
-line per reading, with the card's name and power limit; ``--json`` writes
-them all.
+a 128-row tile) and (2, 64, 64) (d = 64). At each shape the variants'
+outputs are first compared with the checkout's (``torch.equal``, and where
+they differ, how many elements and by how much) and held to the plain
+version (2e-2 x max(|plain|, 1) each element, as phase 3 does), then the
+variants are timed in order and in reverse, ``--rounds`` times in all, on
+the three timers of ``timing``. One line per reading, with the card's name
+and power limit; ``--json`` writes them all.
 
-Where a call launches more than one kernel (the MLP half), its device time
-is also split by kernel.
+Where a call launches more than one kernel (the rect-layer halves), its
+device time is also split by kernel.
 ``--phases`` also builds the checkout's ``fused_text_layer.cu`` with
 ``-DFUSED_TEXT_PHASES`` and runs it at the CoCoOp chunk: thread 0 of block 0
 sums its SM clock by phase of the layer (set-up and LN1, q/k/v products,
@@ -48,7 +47,7 @@ import re
 import subprocess
 import sys
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -76,20 +75,17 @@ MLP_SHAPES = [
     ("129 rows, one past a 128-row tile", (3, 43, 768)),
     ("d 64", (2, 64, 64)),
 ]
-# the symbol only a library of the three-launch MLP half exports, and the
-# argument list of the one-launch entry before it (no scratch pointer)
-MLP_PLAN_SYMBOL = "fused_mlp_half_plan"
-ONE_LAUNCH_MLP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
-                           + [ctypes.c_float, ctypes.c_void_p])
+INCLUDE_LINE = re.compile(r'^#include "(\w+\.cuh)"$', re.M)
 
 
-def inline_header(source: str, header: str) -> str:
-    """``source`` with its include of the shared header replaced by
+def inline_header(source: str, header: str, name: str = HEADER) -> str:
+    """``source`` with its include of the header ``name`` replaced by
     ``header``'s text (its ``#pragma once`` dropped)."""
+    include = f'#include "{name}"'
     lines = source.split("\n")
-    hits = [i for i, ln in enumerate(lines) if ln.strip() == INCLUDE]
+    hits = [i for i, ln in enumerate(lines) if ln.strip() == include]
     if len(hits) != 1:
-        raise ValueError(f"the source includes {HEADER} {len(hits)} times, not once")
+        raise ValueError(f"the source includes {name} {len(hits)} times, not once")
     body = "\n".join(ln for ln in header.split("\n") if ln.strip() != "#pragma once")
     return "\n".join(lines[:hits[0]] + [body] + lines[hits[0] + 1:])
 
@@ -104,14 +100,22 @@ def parse_source(spec: str) -> Tuple[str, Path]:
     return label, Path(path)
 
 
+def inline_headers(source_cu: Path) -> str:
+    """The text of ``source_cu`` with each of its header includes replaced
+    by the header beside it (the headers include no other)."""
+    text = source_cu.read_text()
+    for name in INCLUDE_LINE.findall(text):
+        text = inline_header(text, (source_cu.parent / name).read_text(), name)
+    return text
+
+
 def variant_sources(text_cu: Path) -> Dict[str, str]:
     """The self-contained sources of one variant, by library name:
     ``fused_text_layer`` always, ``fused_rect_layer`` where it lies beside."""
-    header = (text_cu.parent / HEADER).read_text()
-    out = {"fused_text_layer": inline_header(text_cu.read_text(), header)}
+    out = {"fused_text_layer": inline_headers(text_cu)}
     rect = text_cu.parent / "fused_rect_layer.cu"
     if rect.exists():
-        out["fused_rect_layer"] = inline_header(rect.read_text(), header)
+        out["fused_rect_layer"] = inline_headers(rect)
     return out
 
 
@@ -147,55 +151,13 @@ def build_variants(variants: Dict[str, Dict[str, str]]) -> Dict[str, Dict[str, c
     return libs
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def mlp_half_call(lib) -> Callable[[torch.Tensor, dict], torch.Tensor]:
-    """``fused_mlp_half`` of one variant's rect-layer library, as fn(x,
-    blk): the wrapper's where the library exports ``MLP_PLAN_SYMBOL``, else
-    its one-launch entry through ``ONE_LAUNCH_MLP_ARGTYPES`` (no scratch)."""
-    if hasattr(lib, MLP_PLAN_SYMBOL):
-        return lambda x, blk: frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"],
-                                                 kernel=blk["kernel"])
-    entry = lib["fused_mlp_half_forward"]  # a function object of its own
-    entry.argtypes = ONE_LAUNCH_MLP_ARGTYPES
-    entry.restype = ctypes.c_int
-
-    def call(x: torch.Tensor, blk: dict) -> torch.Tensor:
-        weights = frl._kernel_weights(blk, frl._MLP_WEIGHTS, frl._MLP_MATRICES,
-                                      blk.get("kernel"))
-        d = x.shape[-1]
-        out = torch.empty_like(x)
-        rc = entry(x.device.index or 0, x.data_ptr(), out.data_ptr(),
-                   *(t.data_ptr() for t in weights), x.numel() // d, d, 1e-5, _stream(x))
-        if rc != 0:
-            raise RuntimeError(f"one-launch fused_mlp_half_forward returned {rc}")
-        return out
-
-    return call
-
-
-_mlp_call: Optional[Callable[[torch.Tensor, dict], torch.Tensor]] = None
-
-
 def use(libs: Dict[str, ctypes.CDLL]) -> None:
     """Make the wrappers launch from ``libs``."""
-    global _mlp_call
     for name, lib in libs.items():
         _build._loaded[name] = lib
     ftl._lib()  # each sets its argument types
     if "fused_rect_layer" in libs:
-        rect = libs["fused_rect_layer"]
-        if not hasattr(rect, MLP_PLAN_SYMBOL):
-            # a one-launch library: its other entries typed as the wrapper
-            # types them, so that the wrapper leaves it as it is
-            for name, (argtypes, restype) in frl._SIGNATURES.items():
-                if not name.startswith("fused_mlp_half"):
-                    fn = getattr(rect, name)
-                    fn.argtypes, fn.restype = argtypes, restype
         frl._lib()
-        _mlp_call = mlp_half_call(rect)
 
 
 def text_block(gen: torch.Generator, d: int) -> dict:
@@ -239,7 +201,7 @@ def shapes(gen: torch.Generator, rect: bool):
             blk = ftl.with_kernel_layout(text_block(gen, d))
         x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
         yield (f"fused_mlp_half {label} {(B, L, d)}", "fused_rect_layer",
-               lambda x=x, b=blk: _mlp_call(x, b),
+               lambda x=x, b=blk: frl.fused_mlp_half(x, b["ln_2"], b["mlp"], kernel=b["kernel"]),
                lambda x=x, b=blk: frl.fused_mlp_half_reference(x, b["ln_2"], b["mlp"]))
 
 
@@ -282,6 +244,12 @@ def phase_clocks(lib: ctypes.CDLL, smi: str) -> List[dict]:
     return out
 
 
+def differences(out: torch.Tensor, other: torch.Tensor) -> Tuple[int, float]:
+    """(elements that differ, largest absolute difference) of two outputs."""
+    diff = (out.float() - other.float()).abs()
+    return int((out != other).sum()), diff.max().item()
+
+
 def worst_error(out: torch.Tensor, ref: torch.Tensor) -> float:
     """The largest error over its tolerance, 2e-2 x max(|plain|, 1)."""
     diff = (out.float() - ref.float()).abs()
@@ -317,6 +285,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     for label, (N, L, d, heads) in TEXT_SHAPES:
         print(f"plan this {(N, L, d)} {heads} heads: {ftl.launch_plan(N, L, d, heads)}",
               flush=True)
+    print(f"plan this fused_rect_attn_half {RECT_SHAPE}: {frl.attn_launch_plan(*RECT_SHAPE)}",
+          flush=True)
     for label, (B, L, d) in MLP_SHAPES:
         print(f"plan this fused_mlp_half {(B, L, d)}: {frl.mlp_launch_plan(B * L, d)}",
               flush=True)
@@ -332,8 +302,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                 outs[v] = kernel()
                 worst = worst_error(outs[v], ref)
                 equal = torch.equal(outs[v], outs["this"])
-                print(f"{label} {v}: torch.equal to this {equal}, max err / tol against the "
-                      f"plain version {worst:.3f}", flush=True)
+                n_diff, max_diff = differences(outs[v], outs["this"])
+                print(f"{label} {v}: torch.equal to this {equal} ({n_diff} of "
+                      f"{outs[v].numel()} elements differ, by at most {max_diff:.3e}), max err "
+                      f"/ tol against the plain version {worst:.3f}", flush=True)
                 if not (worst <= 1 and bool(torch.isfinite(outs[v]).all())):
                     print(f"FAIL: {label} {v} disagrees with the plain version", flush=True)
                     failed = True
@@ -352,7 +324,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     print(f"{label} {v} round {r} on {smi}: call {reading['call_ms']:.4f} ms, "
                           f"stream {reading['stream_ms']:.4f} ms, device "
                           f"{fmt_ms(reading['device_ms'])}", flush=True)
-                    if split and len(split) > 1:  # the MLP half's launches
+                    if split and len(split) > 1:  # the rect-layer halves' launches
                         for k, ms in sorted(split.items(), key=lambda kv: -kv[1]):
                             print(f"  {label} {v} round {r}: device {ms:.4f} ms in {k}",
                                   flush=True)

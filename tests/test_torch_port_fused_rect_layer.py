@@ -115,6 +115,21 @@ def test_halves_and_block_match_jax(shape, dtype):
         _close(got[name], want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_staged_scratch_layout_is_the_plain_version(shape, dtype):
+    """The attention half's plain version taken through the kernels' launch
+    order, scratch layout, strides and k/v row map is the plain version,
+    bit for bit."""
+    B, L, d, heads, n_kv = SHAPES[shape]
+    _, tblk = _both(_block(5, d), dtype)
+    _, tx = _x(6, B, L, d, dtype)
+    with torch.no_grad():
+        got = frl.fused_rect_attn_half_staged(tx, tblk["ln_1"], tblk["attn"], heads, n_kv)
+        want = frl.fused_rect_attn_half_reference(tx, tblk["ln_1"], tblk["attn"], heads, n_kv)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 def test_bf16_bounds_catch_a_dropped_bias():
     """The bf16 bounds are tight enough to fail a plain version that drops
     out_b or proj_b (std 0.02)."""
@@ -228,16 +243,15 @@ def test_mlp_launch_plan_refuses_what_the_kernels_do_not_take(rows, d):
         frl.mlp_launch_plan(rows, d)
 
 
-def _source_constants():
-    """Every namespace-level ``constexpr int`` of fused_layer_common.cuh,
-    then of fused_rect_layer.cu, evaluated in order (integer division, sizeof(bf16)
-    = 2)."""
+def _source_constants(*names):
+    """Every namespace-level ``constexpr int`` of the named sources under
+    csrc/, evaluated in order (integer division, sizeof(bf16) = 2)."""
     import re
 
     from rpo_tpu_torch.ops import _build
 
     values = {}
-    for name in ("fused_layer_common.cuh", "fused_rect_layer.cu"):
+    for name in names:
         text = (_build.CSRC / name).read_text()
         for key, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", text, re.M):
             expr = expr.replace("sizeof(bf16)", "2").replace("/", "//")
@@ -246,20 +260,111 @@ def _source_constants():
 
 
 def test_mlp_launch_plan_mirrors_the_source():
-    """mlp_launch_plan's constants are the .cu's, read from the source, and
-    its shared bytes are the source's kGemmSmem; each names the other."""
+    """The launch plans' constants are the .cu's and the attention header's,
+    read from the sources, and their GEMM shared bytes the source's
+    kGemmSmem; the .cu names both plans, and the plans have no other owner
+    (no C entry computes them)."""
+    import re
+
     from rpo_tpu_torch.ops import _build
 
-    c = _source_constants()
+    c = _source_constants("fused_layer_common.cuh", "fused_rect_layer.cu")
     assert (c["kGemmRows"], c["kGemmCols"], c["kGemmK"], c["kGemmStages"], c["kGemmThreads"],
             c["kPadBf16"], c["kLnRows"], c["kThreads"]) == (
         frl._GEMM_ROWS, frl._GEMM_COLS, frl._GEMM_K, frl._GEMM_STAGES, frl._GEMM_THREADS,
         frl._PAD_BF16, frl._LN_ROWS, frl._LN_THREADS)
     plan = frl.mlp_launch_plan(22100, 768)
+    attn = frl.attn_launch_plan(100, 221, 768, 12, 197)
     assert plan["fc"]["shared_bytes"] == plan["proj"]["shared_bytes"] == c["kGemmSmem"]
+    assert attn["qkv"]["shared_bytes"] == attn["out"]["shared_bytes"] == c["kGemmSmem"]
+    assert c["kDh"] == frl._HEAD_DIM and c["kMaxKeys"] == frl._MAX_KV
     # the warps cover the block tile: 8 warps of 64 x 32
     assert c["kGemmThreads"] // 32 == (c["kGemmRows"] // c["kGemmWarpRows"]) * c["kGemmColWarps"]
-    source = (_build.CSRC / "fused_rect_layer.cu").read_text()
-    assert "mlp_launch_plan in ops/fused_rect_layer.py" in source
-    assert "int fused_mlp_half_plan(int rows, int d, long long* out)" in source
+    tc = _source_constants("attention_tc.cuh")
+    assert (tc["kTcThreads"], tc["kWarps"], tc["kTile"]) == (
+        frl._TC_THREADS, frl._TC_WARPS, frl._TC_TILE)
+    header = (_build.CSRC / "attention_tc.cuh").read_text()
+    widths = re.search(r"int d64_score_tiles\(int Lk\) \{.*?return ([^;]+);", header, re.S)
+    assert tuple(sorted({int(w) for w in re.findall(r"\d+", widths.group(1))})) == \
+        frl._SCORE_TILES
+    # the widths rect_attention.cu's dispatch instantiates at D = 64
+    rect = (_build.CSRC / "rect_attention.cu").read_text()
+    rect = rect[rect.index("case 64:", rect.index("int dispatch_bf16(")):]
+    rect = rect[:rect.index("case 128:")]
+    assert tuple(int(w) for w in re.findall(r"launch_tc<64, HAS_BIAS, (\d+)>", rect)) == \
+        frl._SCORE_TILES
+    source = " ".join((_build.CSRC / "fused_rect_layer.cu").read_text().replace("//", "").split())
+    assert "mlp_launch_plan and attn_launch_plan in ops/fused_rect_layer.py" in source
+    assert "fused_mlp_half_plan" not in source and "fused_mlp_half_plan" not in frl._SIGNATURES
     assert "csrc/fused_rect_layer.cu" in frl.__doc__ + Path(frl.__file__).read_text()
+
+
+def test_every_kernel_is_named_for_its_half():
+    """The profiler groups device time by kernel name: every kernel of
+    fused_rect_layer.cu carries its half's name, and each half has the
+    kernels its plan counts (the attention's one per score width)."""
+    import re
+
+    from rpo_tpu_torch.ops import _build
+
+    source = (_build.CSRC / "fused_rect_layer.cu").read_text()
+    kernels = re.findall(r"__global__ void(?: __launch_bounds__\([^)]*\([^)]*\)\)| "
+                         r"__launch_bounds__\([^)]*\))?\s+(\w+)\(", source)
+    assert kernels and all(k.startswith(("fused_rect_attn_half_", "fused_mlp_half_"))
+                           for k in kernels), kernels
+    assert sorted(k for k in kernels if k.startswith("fused_rect_attn_half_")) == [
+        "fused_rect_attn_half_attention_kernel", "fused_rect_attn_half_ln1_kernel",
+        "fused_rect_attn_half_out_kernel", "fused_rect_attn_half_qkv_kernel"]
+    assert frl.attn_launch_plan(2, 64, 64, 1, 50)["launches"] == 4
+    assert sorted(k for k in kernels if k.startswith("fused_mlp_half_")) == [
+        "fused_mlp_half_gemm_kernel", "fused_mlp_half_ln2_kernel"]  # fc and proj: one template
+
+
+# (B, L, d, heads, n_kv): chip_smoke.py's rect checks and a short L, where a
+# block of the attention takes several (b, h)
+ATTN_PLAN_CASES = {
+    # ln1, qkv (q tiles first), attention grid, its shared bytes, score
+    # tiles, (b, h) a block, out
+    (100, 221, 768, 12, 197): (1382, 2886, 1038, 1200, 69120, 13, 1, 1038),
+    (100, 197, 768, 12, 197): (1232, 2772, 924, 1200, 69120, 13, 1, 924),
+    (3, 37, 256, 4, 29): (7, 6, 2, 12, 18432, 2, 1, 2),
+    (3, 43, 768, 12, 40): (9, 24, 12, 36, 23040, 5, 1, 12),
+    (2, 64, 64, 1, 50): (8, 2, 1, 2, 27648, 5, 1, 1),
+    (3, 13, 128, 2, 9): (3, 3, 1, 2, 27648, 2, 4, 1),
+}
+
+
+@pytest.mark.parametrize("shape", list(ATTN_PLAN_CASES))
+def test_attn_launch_plan(shape):
+    """Four launches: LN1 16 rows a block; q/k/v the q tiles (all rows, d
+    columns) then the gathered k/v tiles (B * n_kv rows, 2d columns), 128 x
+    128 each; the attention one block of 4 warps per (b, h) at the
+    narrowest score width that holds n_kv, several (b, h) a block where L
+    has fewer than 4 row tiles; out on the q tiles; a 4 * B * L * d scratch;
+    every launch's shared bytes within one block's 232,448."""
+    B, L, d, heads, n_kv = shape
+    plan = frl.attn_launch_plan(*shape)
+    assert plan["launches"] == 4
+    att = plan["attention"]
+    assert (plan["ln1"]["grid"], plan["qkv"]["grid"], plan["qkv"]["q_tiles"], att["grid"],
+            att["shared_bytes"], att["score_tiles"], att["pack"], plan["out"]["grid"]) == \
+        ATTN_PLAN_CASES[shape]
+    assert plan["scratch_elements"] == 4 * B * L * d
+    assert (plan["ln1"]["threads"], plan["qkv"]["threads"], att["threads"],
+            plan["out"]["threads"]) == (512, 256, 128, 256)
+    assert plan["ln1"]["shared_bytes"] == 0
+    for k in ("qkv", "attention", "out"):
+        assert 0 < plan[k]["shared_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((3, 13, 128, 4, 9), "head dim"),  # head dim 32
+    ((3, 13, 128, 2, 0), "n_kv"),
+    ((3, 13, 128, 2, 14), "n_kv"),  # past L
+    ((1, 300, 128, 2, 257), "n_kv"),  # past 256
+    ((1, 4, 832, 13, 2), "width"),
+    ((0, 13, 128, 2, 9), "B"),
+])
+def test_attn_launch_plan_refuses_what_the_kernels_do_not_take(shape, match):
+    with pytest.raises(ValueError, match=match):
+        frl.attn_launch_plan(*shape)

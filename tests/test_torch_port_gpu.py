@@ -316,6 +316,26 @@ def test_fused_text_layer_raises_on_what_it_does_not_take():
         ftl.fused_text_layer(x.clone().requires_grad_(True), blk, 4, mask)
 
 
+def _cuda_launches(fn, name):
+    """The CUDA kernels whose names hold ``name`` that one call of ``fn``
+    launches, by torch.profiler (after a warm call).  A profiler window
+    can come back with no device event at all: such a window is taken
+    again, up to three times, as ``tools.timing`` does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if device:
+            break
+    return sum(e.count for e in device if name in e.key)
+
+
 def _fused_errors(got, want):
     """(largest error over its element's tolerance 2e-2 x max(|plain|, 1),
     mean abs error) of a fused kernel against its plain version."""
@@ -333,14 +353,18 @@ def _fused_errors(got, want):
         (3, 43, 768, 12, 40),  # 129 rows: one past the MLP GEMMs' 128-row tile
         (2, 64, 768, 12, 64),  # 128 rows: exactly one tile
         (2, 64, 64, 1, 50),  # d = 64: proj's N fills half a 128-column block
+        (3, 13, 128, 2, 9),  # L 13: four (b, h) a block of the attention, the last ragged
+        (2, 257, 128, 2, 256),  # n_kv 256: the attention's widest score row
     ],
 )
 def test_fused_rect_halves_match_plain_versions_on_gpu(B, L, d, heads, n_kv):
     """Each half against its plain version, element by element (2e-2 of
     max(|plain|, 1): a bf16 rounding flip from summation order is at most
     2^-7 of the element) and in the mean (1e-4; a dropped bias of std 0.02
-    moves it by ~1.6e-2); one launch each; the weights laid out at the
-    launch and once beforehand give the same output."""
+    moves it by ~1.6e-2); one call each on the wrappers' counts, and on the
+    device the CUDA launches their plans give (4: LN1, q/k/v, attention,
+    out; 3: LN2, fc, proj); the weights laid out at the launch and once
+    beforehand give the same output."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from rpo_tpu_torch.ops import fused_rect_layer as frl
@@ -359,6 +383,17 @@ def test_fused_rect_halves_match_plain_versions_on_gpu(B, L, d, heads, n_kv):
         assert torch.equal(m, frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"]))
         a_ref = frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"], heads, n_kv)
         m_ref = frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"])
+        launches = {
+            "fused_rect_attn_half": _cuda_launches(lambda: frl.fused_rect_attn_half(
+                x, blk["ln_1"], blk["attn"], heads, n_kv, kernel=blk["kernel"]),
+                "fused_rect_attn_half"),
+            "fused_mlp_half": _cuda_launches(lambda: frl.fused_mlp_half(
+                x, blk["ln_2"], blk["mlp"], kernel=blk["kernel"]), "fused_mlp_half"),
+        }
+    assert launches == {"fused_rect_attn_half": frl.attn_launch_plan(B, L, d, heads,
+                                                                     n_kv)["launches"],
+                        "fused_mlp_half": frl.mlp_launch_plan(B * L, d)["launches"]} == \
+        {"fused_rect_attn_half": 4, "fused_mlp_half": 3}, launches
     for got, want in ((a, a_ref), (m, m_ref)):
         assert tuple(got.shape) == (B, L, d) and bool(torch.isfinite(got).all())
         worst, mean = _fused_errors(got, want)

@@ -88,98 +88,31 @@ def test_phase_names_follow_the_kernels_clocks(enum, names):
     assert "tail[kPhases + k] = extra_clocks[k]" in source
 
 
-class _OneLaunchEntry:
-    """A stand-in for the one-launch library's ``fused_mlp_half_forward``:
-    it records its argument types and the arguments of each call."""
-
-    def __init__(self, rc):
-        self.argtypes = self.restype = None
-        self.rc = rc
-        self.calls = []
-
-    def __call__(self, *args):
-        self.calls.append(args)
-        return self.rc
-
-
-class _OneLaunchLib:
-    """A stand-in library without ``fused_mlp_half_plan``: indexing gives a
-    new function object each time, as ctypes does."""
-
-    def __init__(self, rc=0):
-        self.rc = rc
-        self.entries = []
-
-    def __getitem__(self, name):
-        assert name == "fused_mlp_half_forward"
-        self.entries.append(_OneLaunchEntry(self.rc))
-        return self.entries[-1]
+def test_variant_sources_inline_every_header_once(tmp_path):
+    """A source that includes two headers builds from one file: each
+    include is replaced by the header beside it, in place."""
+    (tmp_path / tf.HEADER).write_text("#pragma once\nint common;\n")
+    (tmp_path / "attention_tc.cuh").write_text("#pragma once\nint attention;\n")
+    (tmp_path / "fused_text_layer.cu").write_text(f"{tf.INCLUDE}\nint text;\n")
+    (tmp_path / "fused_rect_layer.cu").write_text(
+        f'// rect\n{tf.INCLUDE}\n#include "attention_tc.cuh"\n#include <math.h>\nint rect;\n')
+    got = tf.variant_sources(tmp_path / "fused_text_layer.cu")
+    assert got["fused_rect_layer"] == ("// rect\nint common;\n\nint attention;\n\n"
+                                       "#include <math.h>\nint rect;\n")
+    # the checkout's rect source includes both of its headers, each once
+    checkout = tf.inline_headers(_build.CSRC / "fused_rect_layer.cu")
+    assert '#include "' not in checkout
+    assert "namespace attention_tc {" in checkout and "namespace fused_layer {" in checkout
 
 
-def _mlp_block(d):
+def test_differences_counts_elements_and_the_largest():
     import torch
 
-    from rpo_tpu_torch.ops import fused_text_layer as ftl
-
-    gen = torch.Generator().manual_seed(0)
-
-    def normal(*shape):
-        return (torch.randn(*shape, generator=gen) * 0.1).to(torch.bfloat16)
-
-    return ftl.with_kernel_layout({
-        "ln_1": {"scale": 1 + normal(d), "bias": normal(d)},
-        "attn": {"qkv_w": normal(d, 3 * d), "qkv_b": normal(3 * d), "out_w": normal(d, d),
-                 "out_b": normal(d)},
-        "ln_2": {"scale": 1 + normal(d), "bias": normal(d)},
-        "mlp": {"fc_w": normal(d, 4 * d), "fc_b": normal(4 * d), "proj_w": normal(4 * d, d),
-                "proj_b": normal(d)}})
-
-
-def test_mlp_half_call_takes_the_wrapper_where_the_plan_symbol_is():
-    """A library that exports fused_mlp_half_plan runs under the wrapper
-    (on CPU tensors, its plain version)."""
-    import types
-
-    import torch
-
-    from rpo_tpu_torch.ops import fused_rect_layer as frl
-
-    blk = _mlp_block(64)
-    x = torch.randn(2, 5, 64, generator=torch.Generator().manual_seed(1)).to(torch.bfloat16)
-    call = tf.mlp_half_call(types.SimpleNamespace(**{tf.MLP_PLAN_SYMBOL: object()}))
-    with torch.no_grad():
-        assert torch.equal(call(x, blk), frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"]))
-
-
-def test_mlp_half_call_gives_a_one_launch_library_its_own_argument_list(monkeypatch):
-    """Without the plan symbol the tool calls the entry through the
-    one-launch argument list (no scratch pointer): device, x, out, the six
-    weights fragment-major, rows, d, eps, stream; a nonzero return raises."""
-    import ctypes
-
-    import pytest
-    import torch
-
-    from rpo_tpu_torch.ops import fused_rect_layer as frl
-
-    monkeypatch.setattr(tf, "_stream", lambda x: 1234)
-    blk = _mlp_block(64)
-    x = torch.zeros(2, 5, 64, dtype=torch.bfloat16)
-    lib = _OneLaunchLib()
-    call = tf.mlp_half_call(lib)
-    entry = lib.entries[-1]
-    assert entry.argtypes == tf.ONE_LAUNCH_MLP_ARGTYPES and entry.restype is ctypes.c_int
-    assert len(tf.ONE_LAUNCH_MLP_ARGTYPES) == len(frl._SIGNATURES["fused_mlp_half_forward"][0]) - 1
-    out = call(x, blk)
-    assert out.shape == x.shape and out.dtype == x.dtype
-    (args,) = entry.calls
-    assert len(args) == len(tf.ONE_LAUNCH_MLP_ARGTYPES)
-    assert args[0] == 0 and args[1] == x.data_ptr() and args[2] == out.data_ptr()
-    assert args[5] == blk["kernel"]["fc_w"].data_ptr()  # the layout made once, not again
-    assert args[7] == blk["kernel"]["proj_w"].data_ptr()
-    assert args[9:] == (10, 64, 1e-5, 1234)
-    with pytest.raises(RuntimeError, match="returned 7"):
-        tf.mlp_half_call(_OneLaunchLib(rc=7))(x, blk)
+    a = torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=torch.bfloat16)
+    b = a.clone()
+    assert tf.differences(a, b) == (0, 0.0)
+    b[1], b[3] = 2.015625, 3.96875
+    assert tf.differences(a, b) == (2, 0.03125)
 
 
 def test_mlp_shapes_are_chip_smokes_rect_checks():
