@@ -62,20 +62,37 @@ Phases, one line each (any failure exits non-zero):
               fused one; the first step's loss, logits and prompt
               gradients, and ten steps' losses, against the same steps
               fully on the plain versions; train images/s at the median
-              of 20 synchronised steps after warm-up; one step profiled.
+              of 20 synchronised steps after warm-up; one step profiled;
+ 11. RPO run  the program a user runs: ``rpo_tpu_torch.cli.main`` (in
+              this process, for the counters) trains configs/trainers/
+              RPO/main_K24.yaml on configs/datasets/synthetic.yaml, 16
+              shots of 10 classes (40 steps an epoch at batch 4), seed 1,
+              two epochs, on its own seed-1 ViT-B/16 in bf16, through the
+              engine's data path, epoch loop, checkpoint and final test:
+              losses finite, the log contract, model.pth.tar-2; rect
+              launches 24 a step and 12 an eval batch, masked 12 for the
+              one text set-up; an eval-only run of the checkpoint prints
+              the same accuracy; the last test batch's logits against
+              both plain versions (phase 4's bounds) and epoch 1's losses
+              against the same epoch on them (phase 10's bound); the
+              engine's step and data time, and its train images/s over
+              epoch 2 beside phase 10's.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
-from seed 1 and shared by the methods.  Imports nothing of JAX or
-rpo_tpu.
+from seed 1 and shared by the methods of phases 4-10.  Imports nothing
+of JAX or rpo_tpu.
 """
 from __future__ import annotations
 
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -101,6 +118,8 @@ TRAIN_LR = 0.01  # configs/trainers/RPO/main.yaml's LR, its first epoch after wa
 N_TRAIN_CHECK = 10  # steps whose losses are held against the plain run
 TRAIN_WARMUP = 3
 N_TRAIN_TIMED = 20
+RUN_SHOTS = 16  # phase 11: Synthetic's 10 classes x 16 shots, 40 steps an epoch at batch 4
+RUN_EPOCHS = 2
 NEG_INF = -1e9
 BF16_TOL = 2e-2  # inputs N(0, 1): about 2 bf16 ulps of outputs below 2
 F32_TOL = 1e-5
@@ -449,6 +468,182 @@ def report_rate(label: str, setup_s: float, batch_s, smi: str) -> float:
           f"{[round(s, 4) for s in batch_s]}; {EVAL_BATCH / med:.1f} images/s at the median batch, "
           f"{EVAL_BATCH * len(batch_s) / sum(batch_s):.1f} over all {len(batch_s)}", flush=True)
     return EVAL_BATCH / med
+
+
+def run_cli(argv):
+    """``rpo_tpu_torch.cli.main`` in this process (so that the launch
+    counters can be read); returns (trainer, its log text).  The logger's
+    tee of stdout is undone afterwards."""
+    from rpo_tpu_torch import cli
+
+    stdout = sys.stdout
+    try:
+        trainer = cli.main(cli.build_parser().parse_args(argv))
+    finally:
+        sys.stdout = stdout
+    with open(os.path.join(trainer.output_dir, "log.txt")) as f:
+        return trainer, f.read()
+
+
+def rpo_run(out: str, smi: str, phase10_rate: float, n_layers: int, text_layers: int) -> dict:
+    """Phase 11: RPO trained by the CLI, main_K24 on Synthetic (10 classes,
+    16 shots: 40 steps an epoch at batch 4), ViT-B/16 in bf16, seed 1, two
+    epochs, then the final test; an eval-only run of the checkpoint; the
+    last test batch's logits and epoch 1's losses against the plain
+    versions, all under the directory ``out``.  Returns the launches by
+    path."""
+    from rpo_tpu_torch.cli import set_random_seed
+    from rpo_tpu_torch.engine import build_trainer
+    from rpo_tpu_torch.engine.optim import lr_at_epoch
+    from rpo_tpu_torch.engine.trainer import device_prefetch
+    from rpo_tpu_torch.methods import rpo as rpo_core
+    from rpo_tpu_torch.methods.rpo_trainer import RPO
+    from rpo_tpu_torch.ops import fused_rect_layer as frl
+    from rpo_tpu_torch.ops import fused_text_layer as ftl
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = ["--seed", "1", "--trainer", "RPO",
+            "--dataset-config-file", os.path.join(root, "configs/datasets/synthetic.yaml"),
+            "--config-file", os.path.join(root, "configs/trainers/RPO/main_K24.yaml"),
+            "--output-dir", os.path.join(out, "train"),
+            "DATASET.NUM_SHOTS", str(RUN_SHOTS), "OPTIM.MAX_EPOCH", str(RUN_EPOCHS)]
+    # every step's loss (left on the device) and, synchronised, the wall
+    # clock around epoch 2's steps
+    losses, stamps = [], []
+    forward_backward = RPO.forward_backward
+
+    def recording(self, batch):
+        if len(losses) == len(self.dm.train_loader_x):  # epoch 2's first step
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        summary = forward_backward(self, batch)
+        losses.append(summary["loss"])
+        if len(losses) == RUN_EPOCHS * len(self.dm.train_loader_x):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return summary
+
+    RPO.forward_backward = recording
+    ra.launches = ma.launches = ftl.launches = frl.attn_half_launches = frl.mlp_half_launches = 0
+    try:
+        trainer, log = run_cli(argv)
+        torch.cuda.synchronize()
+    finally:
+        RPO.forward_backward = forward_backward
+    n_steps, n_eval = len(trainer.dm.train_loader_x), len(trainer.dm.test_loader)
+    launches = {"rect": {"RPO run": ra.launches}, "masked": {"RPO run": ma.launches}}
+    want_rect = 2 * n_layers * RUN_EPOCHS * n_steps + n_layers * n_eval
+    print(f"RPO run launches: rect {ra.launches} = 2 x {n_layers} layers x {RUN_EPOCHS} epochs x "
+          f"{n_steps} steps + {n_layers} x {n_eval} eval batch(es) = {want_rect}; masked "
+          f"{ma.launches} = {text_layers} (one text set-up); fused text {ftl.launches}, fused "
+          f"rect halves {frl.attn_half_launches + frl.mlp_half_launches}", flush=True)
+    if (ra.launches, ma.launches) != (want_rect, text_layers) or ftl.launches or \
+            frl.attn_half_launches or frl.mlp_half_launches:
+        fail("RPO run: the launches are not those of its steps and eval batches")
+    contract = ("Finish training", "=> result", "* accuracy:", "* total:", "* correct:",
+                "* macro_f1:")
+    missing = [line for line in contract if line not in log]
+    step_losses = torch.stack(losses).float().cpu()
+    logged = [float(x) for x in re.findall(r" loss ([-+\d.eEnaif]+) \(", log)]
+    ckpt = os.path.join(trainer.output_dir, "prompt_learner", f"model.pth.tar-{RUN_EPOCHS}")
+    if missing or len(losses) != RUN_EPOCHS * n_steps or not bool(torch.isfinite(step_losses).all()) \
+            or not logged or not all(math.isfinite(x) for x in logged) or not os.path.exists(ckpt):
+        fail(f"RPO run: contract lines missing {missing}, {len(losses)} steps, losses finite "
+             f"{bool(torch.isfinite(step_losses).all())}, logged {logged}, checkpoint "
+             f"{os.path.exists(ckpt)}")
+    accuracy = re.findall(r"\* accuracy: ([\d.]+)%", log)
+    means = re.findall(r"epoch \[(\d)/\d\] batch \[(\d+)/\d+\] time [\d.]+ \(([\d.]+)\) data "
+                       r"[\d.]+ \(([\d.]+)\)", log)
+    batch_size = int(trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE)
+    engine_rate = batch_size * n_steps / (stamps[1] - stamps[0])
+    print(f"RPO run (CLI, main_K24, Synthetic {len(trainer.dm.classnames)} classes x {RUN_SHOTS} "
+          f"shots, batch {batch_size}, {RUN_EPOCHS} epochs of {n_steps} steps, "
+          f"{trainer.cfg.MODEL.BACKBONE.NAME} PREC {trainer.cfg.TRAINER.RPO.PREC}): "
+          f"losses finite, epoch means {[round(x, 4) for x in step_losses.view(RUN_EPOCHS, -1).mean(1).tolist()]}; "
+          f"the log's contract lines present; {os.path.basename(ckpt)} written; final test "
+          f"accuracy {accuracy}", flush=True)
+    for epoch, batch, step_mean, data_mean in means:
+        if int(batch) == n_steps:
+            print(f"RPO run engine means, epoch {epoch}: step time {step_mean} s, data time "
+                  f"{data_mean} s (the log's own means)", flush=True)
+    print(f"RPO run on {smi}: {engine_rate:.1f} train images/s over epoch 2 (the engine's loop, "
+          f"{n_steps} steps synchronised at both ends, data included), against phase 10's "
+          f"{phase10_rate:.1f} (the trainer's step alone, median of {N_TRAIN_TIMED}) in this "
+          f"call", flush=True)
+    # the engine's step over a third epoch's batches made beforehand: the
+    # same loop without the loader's threads beside it (the prompts move
+    # on; the checkpoint is already written)
+    made = list(trainer.dm.train_loader_x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in device_prefetch(made, trainer.device):
+        trainer.forward_backward(batch)
+    torch.cuda.synchronize()
+    bare_rate = batch_size * len(made) / (time.perf_counter() - t0)
+    print(f"RPO run on {smi}: {bare_rate:.1f} train images/s over {len(made)} steps of batches "
+          f"made beforehand (the engine's step and device_prefetch, no loader threads), against "
+          f"{engine_rate:.1f} with the loader", flush=True)
+
+    # eval-only from the run's directory: the same accuracy as the final test
+    ra.launches = ma.launches = 0
+    evaluator, eval_log = run_cli(argv[:argv.index("--output-dir")] + [
+        "--output-dir", os.path.join(out, "eval"), "--eval-only",
+        "--model-dir", trainer.output_dir, "--load-epoch", str(RUN_EPOCHS)] + argv[
+        argv.index("--output-dir") + 2:])
+    torch.cuda.synchronize()
+    launches["rect"]["RPO run, eval-only"] = ra.launches
+    launches["masked"]["RPO run, eval-only"] = ma.launches
+    eval_accuracy = re.findall(r"\* accuracy: ([\d.]+)%", eval_log)
+    ok = eval_accuracy == accuracy and len(accuracy) == 1 and \
+        (ra.launches, ma.launches) == (n_layers * n_eval, text_layers)
+    print(f"RPO run eval-only (--load-epoch {RUN_EPOCHS}): accuracy {eval_accuracy} against the "
+          f"final test's {accuracy}; launches rect {ra.launches}, masked {ma.launches} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("RPO run: the eval-only run does not reproduce the final test")
+    del trainer
+
+    # the last test batch from the loaded checkpoint: kernels against the
+    # plain versions (a text K/V cache built with the plain masked attention)
+    images = [b for b in evaluator.dm.test_loader][-1]["img"]
+    logits = evaluator.eval_step(images)
+    evaluator._frozen = rpo_core.make_frozen(evaluator.clip_params, evaluator.task,
+                                             masked_attn=ma.masked_attention_reference)
+    evaluator._text_f_cache = None
+    plain = evaluator.eval_step(images, rect_attn=ra.rect_attention_reference,
+                                masked_attn=ma.masked_attention_reference)
+    diff = (logits.float() - plain.float()).abs().max().item()
+    agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    ok = bool(torch.isfinite(logits).all()) and diff <= SLICE_ATOL and agree >= SLICE_ARGMAX_AGREE
+    print(f"RPO run checkpoint, last test batch {tuple(logits.shape)}: vs both plain versions "
+          f"max_abs_err {diff:.3e} (tol {SLICE_ATOL}), argmax agree {agree:.4f} (>= "
+          f"{SLICE_ARGMAX_AGREE}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("RPO run: the checkpoint's logits disagree with the plain versions")
+
+    # epoch 1 again on the plain versions: the same seed, so the same
+    # few-shot draw, batches and first prompts; the warm-up LR
+    set_random_seed(1)
+    plain = build_trainer(evaluator.cfg.clone(), clip_params=evaluator.clip_params,
+                          device=evaluator.device)
+    del evaluator
+    plain._frozen = rpo_core.make_frozen(plain.clip_params, plain.task,
+                                         masked_attn=ma.masked_attention_reference)
+    lr = lr_at_epoch(plain.cfg.OPTIM, 0)
+    refs = dict(rect_attn=ra.rect_attention_reference, masked_attn=ma.masked_attention_reference)
+    p_losses = torch.stack([plain.train_step(b["img"], b["label"], b["mask"], lr, **refs)[0]
+                            for b in plain.dm.train_loader_x]).float().cpu()
+    err = (step_losses[:n_steps] - p_losses).abs().max().item()
+    ok = len(p_losses) == n_steps and err <= TRAIN_LOSS_ATOL
+    print(f"RPO run epoch 1 ({n_steps} steps at LR {lr:g}) vs the same epoch on both plain "
+          f"versions: max_abs_err {err:.3e} (tol {TRAIN_LOSS_ATOL:g}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("RPO run: epoch 1's losses disagree with the plain run")
+    del plain
+    return launches
 
 
 def main() -> int:
@@ -1236,6 +1431,16 @@ def main() -> int:
     profile_eval_step(lambda batch: rpo.train_step(*batch, TRAIN_LR), train_batches[-1], smi,
                       "RPO", "train step")
     del rpo
+    phase10_rate = TRAIN_BATCH / statistics.median(step_s)
+
+    # ---- 11. RPO run: the CLI trains main_K24 on Synthetic -----------------
+    run_dir = tempfile.mkdtemp(prefix="rpo_run_")
+    try:
+        run_launches = rpo_run(run_dir, smi, phase10_rate, n_layers, text_layers)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+    rect_launches.update(run_launches["rect"])
+    masked_launches.update(run_launches["masked"])
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",

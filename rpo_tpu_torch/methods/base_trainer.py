@@ -12,9 +12,14 @@ top-1 accuracy) with its optimizer state.  A subclass's
   eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn) -> logits
 
 and, for a method that trains here, the ``loss_and_grads`` function that
-``_make_train_step`` builds.  The engine around it (config, data, epoch
-loop) is not ported yet: the trainer takes its settings as arguments and
-the caller sets ``current_lr``.
+``_make_train_step`` builds.
+
+A trainer is built one of two ways.  Its keyword constructor takes the
+settings as arguments (the caller then sets ``current_lr`` before a
+step); ``TrainerBase.from_cfg`` (``engine.build_trainer``, the CLI)
+reads them from a config in ``build_model`` and adds the engine around
+the same object: the data manager, the epoch loop with its LR schedule,
+checkpoints, resume and the final test.
 """
 from __future__ import annotations
 
@@ -26,7 +31,9 @@ import torch
 from ..data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, device_normalize_fn
 from ..device import DeviceLike, resolve_device
 from ..engine import optim
-from ..models.clip.model import ARCHS, cast_params, init_clip
+from ..engine.trainer import TrainerBase, _load_checkpoint_file
+from ..models.clip.model import ARCHS, cast_params
+from ..models.clip.pretrained import load_backbone
 from ..ops.attention import Attention, MaskedAttention
 from ..ops.masked_attention import masked_attention
 from ..ops.rect_attention import rect_attention
@@ -43,7 +50,8 @@ def prec_dtype(prec: str) -> torch.dtype:
     return {"fp16": torch.bfloat16, "amp": torch.bfloat16, "fp32": torch.float32}[prec]
 
 
-class CLIPMethodTrainer:
+class CLIPMethodTrainer(TrainerBase):
+    prec_key = ""  # e.g. "RPO": the config's TRAINER.RPO.PREC
     model_name = "model"
     log_acc = True  # the CoOp family logs accuracy; RPO only the loss
 
@@ -59,11 +67,14 @@ class CLIPMethodTrainer:
         nesterov: bool = False,
         dampening: float = 0.0,
         microbatch: int = 0,
+        pixel_mean=CLIP_PIXEL_MEAN,
+        pixel_std=CLIP_PIXEL_STD,
     ):
         """``clip_params`` (a nested dict of tensors on ``device``) replaces
-        the random backbone, which is drawn from ``seed`` otherwise: no CLIP
-        checkpoint ships with the repository.  Images are normalised with
-        CLIP's pixel statistics (every RPO config's INPUT.PIXEL_MEAN/STD).
+        the random backbone, which is drawn from ``seed`` otherwise
+        (``load_backbone``): no CLIP checkpoint ships with the repository.
+        Images are normalised with ``pixel_mean`` and ``pixel_std``
+        (INPUT.PIXEL_MEAN/STD; CLIP's, as every method config sets them).
         ``momentum``, ``weight_decay``, ``nesterov`` and ``dampening`` are
         the SGD settings (OPTIM.MOMENTUM, WEIGHT_DECAY, SGD_NESTEROV,
         SGD_DAMPNING; nesterov with dampening raises); ``microbatch``
@@ -84,10 +95,9 @@ class CLIPMethodTrainer:
         self.clip_cfg = ARCHS[backbone]
         dtype = prec_dtype(prec)
         if clip_params is None:
-            gen = torch.Generator(device=self.device).manual_seed(self.seed)
-            clip_params = init_clip(gen, self.clip_cfg)
+            clip_params, _ = load_backbone(backbone, seed=self.seed, device=self.device)
         self.clip_params = cast_params(clip_params, dtype)
-        self._normalize = device_normalize_fn(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, dtype=dtype)
+        self._normalize = device_normalize_fn(pixel_mean, pixel_std, dtype=dtype)
         self.params = None
         self._loss_and_grads = None
         self.build_method()
@@ -95,6 +105,60 @@ class CLIPMethodTrainer:
 
     def build_method(self) -> None:
         raise NotImplementedError
+
+    # -- the engine's build, from a config (TrainerBase.from_cfg) -----------
+    def check_cfg(self, cfg) -> None:
+        if cfg.TRAINER[self.prec_key].PREC not in ("fp16", "fp32", "amp"):
+            raise ValueError(f"TRAINER.{self.prec_key}.PREC must be fp16, fp32 or amp")
+        if int(cfg.INPUT.DEVICE_RESIZE):
+            raise NotImplementedError(
+                "INPUT.DEVICE_RESIZE > 0 (the resize on the device) is not ported to "
+                "rpo_tpu_torch yet")
+
+    def method_kwargs(self, cfg) -> dict:
+        """The method's own keyword settings, read from ``cfg`` and the data
+        manager (RPO: its classnames, prompt template and K)."""
+        return {}
+
+    def build_model(self, clip_params: Optional[dict] = None, device: DeviceLike = None) -> None:
+        """The keyword constructor with the settings of ``self.cfg``: the
+        backbone and its precision, the seed, the SGD settings,
+        TRAIN.MICROBATCH, the pixel statistics and the method's own; then
+        MODEL.INIT_WEIGHTS and the model's registration.  ``clip_params``
+        replaces the random backbone; ``device`` None is the CUDA card."""
+        cfg = self.cfg
+        prec = cfg.TRAINER[self.prec_key].PREC
+        backbone = cfg.MODEL.BACKBONE.NAME
+        if prec == "amp":
+            print("PREC 'amp': bf16 compute, no GradScaler (bf16 keeps fp32's exponent "
+                  "range; identical to PREC 'fp16')")
+        if backbone not in ARCHS:
+            raise KeyError(f"Unknown backbone {backbone!r}; known: {sorted(ARCHS)}")
+        if int(cfg.INPUT.SIZE[0]) != ARCHS[backbone].image_resolution:
+            raise ValueError(f"cfg_imsize ({cfg.INPUT.SIZE[0]}) must equal to clip_imsize "
+                             f"({ARCHS[backbone].image_resolution})")
+        seed = max(int(cfg.SEED), 0)
+        device = resolve_device(device)
+        print(f"Loading CLIP (backbone: {backbone})")
+        if clip_params is None:
+            clip_params, _ = load_backbone(backbone, seed=seed, device=device)
+        print("Building custom CLIP")
+        type(self).__init__(
+            self, **self.method_kwargs(cfg), backbone=backbone, prec=prec, seed=seed,
+            device=device, clip_params=clip_params,
+            momentum=float(cfg.OPTIM.MOMENTUM), weight_decay=float(cfg.OPTIM.WEIGHT_DECAY),
+            nesterov=bool(cfg.OPTIM.SGD_NESTEROV), dampening=float(cfg.OPTIM.SGD_DAMPNING),
+            microbatch=int(cfg.TRAIN.MICROBATCH), pixel_mean=cfg.INPUT.PIXEL_MEAN,
+            pixel_std=cfg.INPUT.PIXEL_STD)
+        if cfg.MODEL.INIT_WEIGHTS:
+            # the trainable tensors from a checkpoint file before training
+            # (the reference's load_pretrained_weights)
+            ckpt = _load_checkpoint_file(cfg.MODEL.INIT_WEIGHTS)
+            print(f"Initializing {self.model_name} from {cfg.MODEL.INIT_WEIGHTS}")
+            self.set_ckpt_state(self.model_name, ckpt["state_dict"])
+        self.register_model(self.model_name)
+        names = {f"{self.model_name}.{k}" for k in self.params}
+        print(f"Parameters to be updated: {names}")
 
     def _install_steps(self, text_features, eval_step, loss_and_grads=None) -> None:
         self._text_features = text_features
@@ -245,10 +309,17 @@ class CLIPMethodTrainer:
             self.params, self._frozen, self.text_features(), images, rect_attn, masked_attn
         )
 
+    def model_inference_async(self, images) -> torch.Tensor:
+        """The logits left on the device; ``test()`` converts them."""
+        return self.eval_step(images)
+
     def model_inference(self, images: np.ndarray) -> np.ndarray:
         return self.eval_step(images).float().cpu().numpy()
 
     # -- checkpoint state ---------------------------------------------------
+    def get_ckpt_state(self, name: str):
+        return self.params
+
     def set_ckpt_state(self, name: str, state) -> None:
         """Install checkpointed trainable state (a dict of arrays or tensors,
         or of such dicts, as CoCoOp's ``meta_net``; each leaf copied to

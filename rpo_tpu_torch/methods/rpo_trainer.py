@@ -5,7 +5,8 @@ frozen bundle with the text K/V cache), the per-task text features, the
 eval step on uint8 images, and the train step: each step's text features
 come from the live prompts through the cached text path, the logits from
 the split vision tower, under the base trainer's masked cross-entropy
-and SGD.
+and SGD.  Registered as ``"RPO"`` for the engine, which builds it from a
+config (TRAINER.RPO.K and PREC, DATASET.PROMPT, the dataset's classnames).
 """
 from __future__ import annotations
 
@@ -13,13 +14,17 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.layers import VisionLayer
+from ..models.clip.model import ARCHS
 from ..ops.fused_text_layer import with_kernel_layout
 from . import rpo as core
 from .base_trainer import CLIPMethodTrainer
 
 
+@TRAINER_REGISTRY.register()
 class RPO(CLIPMethodTrainer):
+    prec_key = "RPO"
     model_name = "prompt_learner"
     log_acc = False  # the reference RPO logs only the loss
 
@@ -42,6 +47,20 @@ class RPO(CLIPMethodTrainer):
         self.K = int(K)
         self.vision_layer = vision_layer
         super().__init__(**kwargs)
+
+    def check_cfg(self, cfg) -> None:
+        super().check_cfg(cfg)
+        arch = ARCHS.get(cfg.MODEL.BACKBONE.NAME)
+        if arch is not None and not arch.is_vit:
+            # the reference RPO hardcodes the ViT patch grid and d_v = 768;
+            # a ResNet visual tower has no prompt insertion points
+            raise ValueError(
+                f"RPO requires a ViT backbone, got {cfg.MODEL.BACKBONE.NAME} (ModifiedResNet). "
+                "Use CoOp/CoCoOp/LP/ZeroshotCLIP for RN backbones.")
+
+    def method_kwargs(self, cfg) -> dict:
+        return {"classnames": self.dm.classnames, "prompt_template": cfg.DATASET.PROMPT,
+                "K": int(cfg.TRAINER.RPO.K)}
 
     def build_method(self) -> None:
         if not self.clip_cfg.is_vit:
