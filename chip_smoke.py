@@ -63,20 +63,47 @@ Phases, one line each (any failure exits non-zero):
               gradients, and ten steps' losses, against the same steps
               fully on the plain versions; train images/s at the median
               of 20 synchronised steps after warm-up; one step profiled;
+              then the step as a CUDA graph through the engine's hooks:
+              ten replays of the one-step graph and two of the five-step
+              graph from the same first prompts, against the ten eager
+              steps (losses and prompts torch.equal, else within the
+              train bound, the gap printed), the rect launches the
+              wrappers count (each graph's warm-up step and capture, 24 a
+              step; a replay calls no wrapper), train images/s at the
+              median of 20 replays of each, and a profiled replay of each
+              whose rect kernels on the device must be 24 a step;
  11. RPO run  the program a user runs: ``rpo_tpu_torch.cli.main`` (in
               this process, for the counters) trains configs/trainers/
               RPO/main_K24.yaml on configs/datasets/synthetic.yaml, 16
               shots of 10 classes (40 steps an epoch at batch 4), seed 1,
               two epochs, on its own seed-1 ViT-B/16 in bf16, through the
-              engine's data path, epoch loop, checkpoint and final test:
-              losses finite, the log contract, model.pth.tar-2; rect
-              launches 24 a step and 12 an eval batch, masked 12 for the
-              one text set-up; an eval-only run of the checkpoint prints
-              the same accuracy; the last test batch's logits against
-              both plain versions (phase 4's bounds) and epoch 1's losses
-              against the same epoch on them (phase 10's bound); the
-              engine's step and data time, and its train images/s over
-              epoch 2 beside phase 10's.
+              engine's data path, epoch loop (each step one replay of the
+              one-step graph, captured before the first batch:
+              TRAIN.PREWARM_COMPILE), checkpoint and final test: losses
+              finite, the log contract, model.pth.tar-2; rect launches 24
+              a step of its graph's warm-up and capture, 12 an eval batch,
+              masked 12 for the one text set-up, the capture's 24 a step
+              times the replays covering the 80 steps, and a profiled
+              replay on a third epoch's batches running 24 rect kernels a
+              step on the device; an eval-only run of the
+              checkpoint prints the same accuracy; the last test batch's
+              logits against both plain versions (phase 4's bounds) and
+              epoch 1's losses against the same epoch on them, eagerly
+              (phase 10's bound); the engine's step and data time, and
+              its train images/s over epoch 2 beside phase 10's;
+ 12. RPO run, one dispatch  phase 11's run with TRAIN.STEPS_PER_DISPATCH
+              4 (ten replays of the four-step graph an epoch): the
+              launches and the log contract, epoch 1's 40 losses against
+              phase 11's on the same batches; then the same with
+              INPUT.DEVICE_RESIZE 224 (the sources, crop boxes and flips
+              go to the device, where the captured step resamples them):
+              the log contract, finite losses, the card's crops of the
+              loader's sources, boxes and flips against the same function
+              on the CPU and against the host's resample in uint8 steps
+              (two planted faults must fail), the eval-only accuracy and
+              the checkpoint's logits against both plain versions; each
+              run's train images/s over epoch 2 and its step and data
+              means beside phase 11's.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
 from seed 1 and shared by the methods of phases 4-10.  Imports nothing
@@ -118,6 +145,7 @@ TRAIN_LR = 0.01  # configs/trainers/RPO/main.yaml's LR, its first epoch after wa
 N_TRAIN_CHECK = 10  # steps whose losses are held against the plain run
 TRAIN_WARMUP = 3
 N_TRAIN_TIMED = 20
+GRAPH_GROUP = 5  # phase 10: steps a replay of the grouped graph
 RUN_SHOTS = 16  # phase 11: Synthetic's 10 classes x 16 shots, 40 steps an epoch at batch 4
 RUN_EPOCHS = 2
 NEG_INF = -1e9
@@ -170,6 +198,18 @@ TRAIN_GRAD_COS = 0.99
 # against its plain version, on the same image features) keeps
 # SINGLE_PAIR_ARGMAX_AGREE.
 WITNESS_SIGMAS = 3.0
+# INPUT.DEVICE_RESIZE's augmentation in uint8 steps, on the card against
+# the same function on the CPU and against the host's Pillow-exact
+# resample: the three round after each pass, and where a pass's float32
+# sum lands within rounding of a half step (on the main_K24 crops, 5e-5 of
+# the first pass's values are exact ties and 2.2e-4 within 1e-4 of one)
+# the order of the sums, or Pillow's fixed point, decides: one step a
+# pass, two in all.  On the H100, an epoch of the loader's 160 crops at
+# 224: card vs CPU 6.82e-4 of the values apart, card vs host 1.10e-3,
+# both at most two steps; the planted faults 0.511 (flips dropped) and
+# 0.996 (boxes ignored).  So at most PREP_STEPS, on at most PREP_SHARE.
+PREP_STEPS = 2
+PREP_SHARE = 5e-3
 # Zero-shot text features are unit vectors of 512 components of about
 # 0.04 each; kernel vs plain attention over 12 bf16 layers moves a
 # component by rounding flips only, so 1e-2 is a quarter of one.
@@ -303,14 +343,14 @@ def text_block(gen, d: int) -> dict:
 
 
 def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batch",
-                      before=None) -> dict:
+                      before=None):
     """One more eval batch (or train step, ``what``) under torch.profiler:
     device time by kernel group, the device's idle share of its wall time
     and the count of device operations.  ``before`` runs after the warm-up,
     just before the profiled step.  A window with no device time is taken
     again, up to three times (``before`` before each).  Returns the device
     operations the profiler saw, by group (empty where it saw no device
-    time)."""
+    time), and the device's busy milliseconds (0 there)."""
     from torch.profiler import ProfilerActivity, profile
 
     step(images)  # warm
@@ -348,13 +388,13 @@ def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batc
     busy, n_ops = sum(groups.values()), sum(counts.values())
     if busy == 0:
         print(f"profile {label}: the profiler saw no device time (not measured)")
-        return {}
+        return {}, 0.0
     parts = ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
                       for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
     print(f"profile {label} {what} on {smi}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}, {n_ops} device "
           f"operations (kernels and copies); {parts}", flush=True)
-    return counts
+    return counts, busy / 1e3
 
 
 def run_batches(step, batches):
@@ -485,63 +525,184 @@ def run_cli(argv):
         return trainer, f.read()
 
 
-def rpo_run(out: str, smi: str, phase10_rate: float, n_layers: int, text_layers: int) -> dict:
-    """Phase 11: RPO trained by the CLI, main_K24 on Synthetic (10 classes,
-    16 shots: 40 steps an epoch at batch 4), ViT-B/16 in bf16, seed 1, two
-    epochs, then the final test; an eval-only run of the checkpoint; the
-    last test batch's logits and epoch 1's losses against the plain
-    versions, all under the directory ``out``.  Returns the launches by
-    path."""
-    from rpo_tpu_torch.cli import set_random_seed
-    from rpo_tpu_torch.engine import build_trainer
-    from rpo_tpu_torch.engine.optim import lr_at_epoch
-    from rpo_tpu_torch.engine.trainer import device_prefetch
-    from rpo_tpu_torch.methods import rpo as rpo_core
+def check_replay_kernels(label: str, step, arg, n: int, smi: str, n_layers: int) -> float:
+    """A replay of an n-step graph under torch.profiler (``step(arg)``):
+    its rect-kernel device operations must be the 2 x n_layers x n launches
+    the capture recorded, with no masked one (a replay calls no wrapper, so
+    only the profiler sees its kernels run).  Returns the replay's device
+    busy milliseconds."""
+    seen, busy_ms = profile_eval_step(step, arg, smi, label, f"train, {n}-step graph replay")
+    rect, masked = seen.get("rect_attention kernel", 0), seen.get("masked_attention kernel", 0)
+    want = 2 * n_layers * n
+    ok = rect == want and masked == 0
+    print(f"{label}, {n}-step graph, profiled replay: {rect} rect-kernel device operations = "
+          f"2 x {n_layers} x {n} steps (want {want}), {masked} masked "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label}: a replay of the {n}-step graph ran {rect} rect and {masked} masked "
+             f"kernels on the device, expected {want} and 0")
+    return busy_ms
+
+
+def graphed_train(rpo, train_batches, first_prompts, eager_losses, eager_prompts,
+                  eager_rate: float, smi: str, n_layers: int):
+    """Phase 10's graphed step: from the first prompts and a fresh
+    optimizer, ten replays of the one-step graph and two of the
+    GRAPH_GROUP-step graph through the engine's hooks, against the ten
+    eager steps (losses and prompts ``torch.equal``, else within the
+    train bound with the gap printed); the rect launches the wrappers
+    counted (the warm-up step and the capture) and those a profiled
+    replay ran on the device (24 a step); train images/s at the median
+    of N_TRAIN_TIMED replays after TRAIN_WARMUP, beside the eager step's.
+    Returns the rect launches by path and the replayed ones (captured x
+    replays)."""
+    from rpo_tpu_torch.methods.step_graph import WARMUP_STEPS, batch_spec
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    batches = [{"img": b[0], "label": b[1], "mask": b[2]} for b in train_batches]
+    checked = batches[:N_TRAIN_CHECK]
+    rpo.current_lr = TRAIN_LR
+    launches, replayed, rates = {}, {}, {"eager": eager_rate}
+    for n in (1, GRAPH_GROUP):
+        rpo.set_ckpt_state(rpo.model_name, first_prompts)  # in place: a fresh optimizer
+        ra.launches = ma.launches = 0
+        t0 = time.perf_counter()
+        losses = torch.stack([s["loss"] for i in range(0, N_TRAIN_CHECK, n)
+                              for s in rpo.forward_backward_multi(checked[i:i + n])])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        graph = rpo._graphs[(n, batch_spec(checked[0]))]
+        per_replay = graph.launches_per_replay["rect_attention.launches"]
+        want = 2 * n_layers * (WARMUP_STEPS + n)
+        same = bool(torch.equal(losses, eager_losses)) and all(
+            torch.equal(t, eager_prompts[key]) for key, t in rpo.params.items())
+        err = (losses - eager_losses).abs().max().item()
+        p_err = max((t - eager_prompts[key]).abs().max().item() for key, t in rpo.params.items())
+        ok = ra.launches == want and per_replay == 2 * n_layers * n and ma.launches == 0 and \
+            graph.replays == N_TRAIN_CHECK // n and err <= TRAIN_LOSS_ATOL
+        print(f"slice RPO train, {n}-step graph: {graph.replays} replays of {n} step(s) from "
+              f"the first prompts against the {N_TRAIN_CHECK} eager "
+              f"steps: losses and prompts {'torch.equal' if same else 'NOT equal'} (losses "
+              f"max_abs_err {err:.3e}, tol {TRAIN_LOSS_ATOL:g}; prompts {p_err:.3e}); rect "
+              f"launches counted {ra.launches} = 2 x {n_layers} x ({WARMUP_STEPS} warm-up step + "
+              f"{n} captured), {per_replay} recorded a replay; replayed {per_replay} x "
+              f"{graph.replays} = {per_replay * graph.replays}; masked {ma.launches}; capture "
+              f"and replays {first_s:.2f} s {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"RPO train: the {n}-step graph disagrees with the eager steps or its launches")
+        launches[f"RPO train, {n}-step graph"] = ra.launches
+        replayed[f"RPO train, {n}-step graph"] = per_replay * graph.replays
+        groups = [[batches[(i * n + j) % len(batches)] for j in range(n)]
+                  for i in range(TRAIN_WARMUP + N_TRAIN_TIMED)]
+        for group in groups[:TRAIN_WARMUP]:
+            rpo.forward_backward_multi(group)
+        replay_s = []
+        for group in groups[TRAIN_WARMUP:]:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rpo.forward_backward_multi(group)
+            torch.cuda.synchronize()
+            replay_s.append(time.perf_counter() - t)
+        med = statistics.median(replay_s)
+        rates[f"{n}-step graph"] = TRAIN_BATCH * n / med
+        print(f"RPO train, {n}-step graph on {smi}: replay seconds median {med:.5f} (min "
+              f"{min(replay_s):.5f}, max {max(replay_s):.5f}, {len(replay_s)} replays after "
+              f"{TRAIN_WARMUP} warm-up, each from the host's uint8 batches to the updated "
+              f"prompts); {TRAIN_BATCH * n / med:.1f} train images/s at the median replay, "
+              f"{TRAIN_BATCH * n * len(replay_s) / sum(replay_s):.1f} over all", flush=True)
+        busy_ms = check_replay_kernels("RPO train", rpo.forward_backward_multi, groups[-1], n, smi,
+                                       n_layers)
+        # the profiler's own cost stretches a traced replay's wall time
+        print(f"RPO train, {n}-step graph: the profiled replay's device busy {busy_ms:.2f} ms "
+              f"against the median untraced replay's {med * 1e3:.2f} ms: idle share "
+              f"{max(0.0, 1 - busy_ms / (med * 1e3)):.1%} of an untraced replay", flush=True)
+    print(f"RPO train on {smi}, train images/s (median): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
+    return launches, replayed
+
+
+def run_argv(out: str, extra=()) -> list:
+    """The CLI's arguments for main_K24 on Synthetic (RUN_SHOTS shots of 10
+    classes, RUN_EPOCHS epochs, seed 1), output under ``out``."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return ["--seed", "1", "--trainer", "RPO",
+            "--dataset-config-file", os.path.join(root, "configs/datasets/synthetic.yaml"),
+            "--config-file", os.path.join(root, "configs/trainers/RPO/main_K24.yaml"),
+            "--output-dir", out,
+            "DATASET.NUM_SHOTS", str(RUN_SHOTS), "OPTIM.MAX_EPOCH", str(RUN_EPOCHS), *extra]
+
+
+def cli_train(out: str, smi: str, label: str, extra, n_layers: int, text_layers: int):
+    """A CLI training run (``run_argv`` plus ``extra``) with every step's
+    loss and the wall clock around epoch 2's steps recorded, both engine
+    hooks (a group's losses come from ``forward_backward_multi``); the
+    launches the wrappers counted from 0 (each captured graph's warm-up
+    step and captured steps, and the test batch), the launches the graphs
+    recorded against the run's steps, the log contract; then a third
+    epoch's batches and a profiled replay of each graph on them, whose
+    rect kernels on the device must be 24 a step.  Returns (trainer, log,
+    argv, the step losses on the host, the engine's images/s over epoch
+    2, the final test's accuracy line, the third epoch's batches, the rect
+    launches replayed: recorded x replays)."""
     from rpo_tpu_torch.methods.rpo_trainer import RPO
+    from rpo_tpu_torch.methods.step_graph import WARMUP_STEPS
     from rpo_tpu_torch.ops import fused_rect_layer as frl
     from rpo_tpu_torch.ops import fused_text_layer as ftl
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
 
-    root = os.path.dirname(os.path.abspath(__file__))
-    argv = ["--seed", "1", "--trainer", "RPO",
-            "--dataset-config-file", os.path.join(root, "configs/datasets/synthetic.yaml"),
-            "--config-file", os.path.join(root, "configs/trainers/RPO/main_K24.yaml"),
-            "--output-dir", os.path.join(out, "train"),
-            "DATASET.NUM_SHOTS", str(RUN_SHOTS), "OPTIM.MAX_EPOCH", str(RUN_EPOCHS)]
-    # every step's loss (left on the device) and, synchronised, the wall
-    # clock around epoch 2's steps
+    argv = run_argv(os.path.join(out, "train"), extra)
     losses, stamps = [], []
-    forward_backward = RPO.forward_backward
+    single, multi = RPO.forward_backward, RPO.forward_backward_multi
 
-    def recording(self, batch):
-        if len(losses) == len(self.dm.train_loader_x):  # epoch 2's first step
+    def stamp(self, at_start: bool) -> None:
+        n = len(self.dm.train_loader_x)
+        if len(losses) == (n if at_start else RUN_EPOCHS * n):  # epoch 2's first / last step
             torch.cuda.synchronize()
             stamps.append(time.perf_counter())
-        summary = forward_backward(self, batch)
+
+    def one(self, batch):
+        stamp(self, True)
+        summary = single(self, batch)
         losses.append(summary["loss"])
-        if len(losses) == RUN_EPOCHS * len(self.dm.train_loader_x):
-            torch.cuda.synchronize()
-            stamps.append(time.perf_counter())
+        stamp(self, False)
         return summary
 
-    RPO.forward_backward = recording
+    def group(self, batches):
+        stamp(self, True)
+        summaries = multi(self, batches)
+        losses.extend(s["loss"] for s in summaries)
+        stamp(self, False)
+        return summaries
+
+    RPO.forward_backward, RPO.forward_backward_multi = one, group
     ra.launches = ma.launches = ftl.launches = frl.attn_half_launches = frl.mlp_half_launches = 0
     try:
         trainer, log = run_cli(argv)
         torch.cuda.synchronize()
     finally:
-        RPO.forward_backward = forward_backward
+        RPO.forward_backward, RPO.forward_backward_multi = single, multi
     n_steps, n_eval = len(trainer.dm.train_loader_x), len(trainer.dm.test_loader)
-    launches = {"rect": {"RPO run": ra.launches}, "masked": {"RPO run": ma.launches}}
-    want_rect = 2 * n_layers * RUN_EPOCHS * n_steps + n_layers * n_eval
-    print(f"RPO run launches: rect {ra.launches} = 2 x {n_layers} layers x {RUN_EPOCHS} epochs x "
-          f"{n_steps} steps + {n_layers} x {n_eval} eval batch(es) = {want_rect}; masked "
-          f"{ma.launches} = {text_layers} (one text set-up); fused text {ftl.launches}, fused "
-          f"rect halves {frl.attn_half_launches + frl.mlp_half_launches}", flush=True)
+    graphs = list(trainer._graphs.values())
+    per_step = 2 * n_layers
+    counted_steps = sum(WARMUP_STEPS + g.n_steps for g in graphs)
+    want_rect = per_step * counted_steps + n_layers * n_eval
+    captured = [(g.n_steps, g.replays, g.launches_per_replay["rect_attention.launches"])
+                for g in graphs]
+    replayed = sum(k * r for _, k, r in captured)
+    print(f"{label} launches: rect {ra.launches} = 2 x {n_layers} layers x {counted_steps} steps "
+          f"(each graph's {WARMUP_STEPS} warm-up step and its captured steps, {len(graphs)} "
+          f"graph(s)) + {n_layers} x {n_eval} eval batch(es) = {want_rect}; graphs (steps, "
+          f"replays, rect launches recorded a replay) {captured}: {replayed} replayed (recorded x "
+          f"replays) over {RUN_EPOCHS} x {n_steps} steps; masked {ma.launches} = {text_layers} "
+          f"(one text set-up); fused text {ftl.launches}, fused rect halves "
+          f"{frl.attn_half_launches + frl.mlp_half_launches}", flush=True)
     if (ra.launches, ma.launches) != (want_rect, text_layers) or ftl.launches or \
-            frl.attn_half_launches or frl.mlp_half_launches:
-        fail("RPO run: the launches are not those of its steps and eval batches")
+            frl.attn_half_launches or frl.mlp_half_launches or not graphs or \
+            any(r != per_step * n for n, _, r in captured) or \
+            sum(n * k for n, k, _ in captured) != RUN_EPOCHS * n_steps:
+        fail(f"{label}: the launches are not those of its steps, graphs and eval batches")
     contract = ("Finish training", "=> result", "* accuracy:", "* total:", "* correct:",
                 "* macro_f1:")
     missing = [line for line in contract if line not in log]
@@ -550,81 +711,131 @@ def rpo_run(out: str, smi: str, phase10_rate: float, n_layers: int, text_layers:
     ckpt = os.path.join(trainer.output_dir, "prompt_learner", f"model.pth.tar-{RUN_EPOCHS}")
     if missing or len(losses) != RUN_EPOCHS * n_steps or not bool(torch.isfinite(step_losses).all()) \
             or not logged or not all(math.isfinite(x) for x in logged) or not os.path.exists(ckpt):
-        fail(f"RPO run: contract lines missing {missing}, {len(losses)} steps, losses finite "
+        fail(f"{label}: contract lines missing {missing}, {len(losses)} steps, losses finite "
              f"{bool(torch.isfinite(step_losses).all())}, logged {logged}, checkpoint "
              f"{os.path.exists(ckpt)}")
     accuracy = re.findall(r"\* accuracy: ([\d.]+)%", log)
-    means = re.findall(r"epoch \[(\d)/\d\] batch \[(\d+)/\d+\] time [\d.]+ \(([\d.]+)\) data "
-                       r"[\d.]+ \(([\d.]+)\)", log)
     batch_size = int(trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE)
     engine_rate = batch_size * n_steps / (stamps[1] - stamps[0])
-    print(f"RPO run (CLI, main_K24, Synthetic {len(trainer.dm.classnames)} classes x {RUN_SHOTS} "
+    print(f"{label} (CLI, main_K24, Synthetic {len(trainer.dm.classnames)} classes x {RUN_SHOTS} "
           f"shots, batch {batch_size}, {RUN_EPOCHS} epochs of {n_steps} steps, "
-          f"{trainer.cfg.MODEL.BACKBONE.NAME} PREC {trainer.cfg.TRAINER.RPO.PREC}): "
-          f"losses finite, epoch means {[round(x, 4) for x in step_losses.view(RUN_EPOCHS, -1).mean(1).tolist()]}; "
+          f"{trainer.cfg.MODEL.BACKBONE.NAME} PREC {trainer.cfg.TRAINER.RPO.PREC}, "
+          f"STEPS_PER_DISPATCH {int(trainer.cfg.TRAIN.STEPS_PER_DISPATCH)}, DEVICE_RESIZE "
+          f"{int(trainer.cfg.INPUT.DEVICE_RESIZE)}): losses finite, epoch means "
+          f"{[round(x, 4) for x in step_losses.view(RUN_EPOCHS, -1).mean(1).tolist()]}; "
           f"the log's contract lines present; {os.path.basename(ckpt)} written; final test "
           f"accuracy {accuracy}", flush=True)
+    means = re.findall(r"epoch \[(\d)/\d\] batch \[(\d+)/\d+\] time [\d.]+ \(([\d.]+)\) data "
+                       r"[\d.]+ \(([\d.]+)\)", log)
     for epoch, batch, step_mean, data_mean in means:
         if int(batch) == n_steps:
-            print(f"RPO run engine means, epoch {epoch}: step time {step_mean} s, data time "
+            print(f"{label} engine means, epoch {epoch}: step time {step_mean} s, data time "
                   f"{data_mean} s (the log's own means)", flush=True)
-    print(f"RPO run on {smi}: {engine_rate:.1f} train images/s over epoch 2 (the engine's loop, "
-          f"{n_steps} steps synchronised at both ends, data included), against phase 10's "
-          f"{phase10_rate:.1f} (the trainer's step alone, median of {N_TRAIN_TIMED}) in this "
-          f"call", flush=True)
-    # the engine's step over a third epoch's batches made beforehand: the
-    # same loop without the loader's threads beside it (the prompts move
-    # on; the checkpoint is already written)
+    print(f"{label} on {smi}: {engine_rate:.1f} train images/s over epoch 2 (the engine's loop, "
+          f"{n_steps} steps synchronised at both ends, data included)", flush=True)
+    # a third epoch's batches (the prompts move on; the checkpoint is
+    # written): a profiled replay of each graph the run captured
     made = list(trainer.dm.train_loader_x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for batch in device_prefetch(made, trainer.device):
-        trainer.forward_backward(batch)
-    torch.cuda.synchronize()
-    bare_rate = batch_size * len(made) / (time.perf_counter() - t0)
-    print(f"RPO run on {smi}: {bare_rate:.1f} train images/s over {len(made)} steps of batches "
-          f"made beforehand (the engine's step and device_prefetch, no loader threads), against "
-          f"{engine_rate:.1f} with the loader", flush=True)
+    for g in graphs:
+        step = trainer.forward_backward_multi if g.n_steps > 1 else (
+            lambda group: trainer.forward_backward(group[0]))
+        check_replay_kernels(label, step, made[:g.n_steps], g.n_steps, smi, n_layers)
+    return trainer, log, argv, step_losses, engine_rate, accuracy, made, replayed
 
-    # eval-only from the run's directory: the same accuracy as the final test
+
+def eval_only_check(out: str, label: str, trainer, argv, accuracy, n_layers: int,
+                    text_layers: int):
+    """An eval-only run of the training run's last checkpoint under
+    ``out``/eval: the same accuracy, 12 rect launches a test batch and one
+    text set-up; then the last test batch's logits against both plain
+    versions at phase 4's bounds.  Returns the evaluating trainer and its
+    launches."""
+    from rpo_tpu_torch.methods import rpo as rpo_core
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
     ra.launches = ma.launches = 0
-    evaluator, eval_log = run_cli(argv[:argv.index("--output-dir")] + [
+    i = argv.index("--output-dir")
+    evaluator, eval_log = run_cli(argv[:i] + [
         "--output-dir", os.path.join(out, "eval"), "--eval-only",
-        "--model-dir", trainer.output_dir, "--load-epoch", str(RUN_EPOCHS)] + argv[
-        argv.index("--output-dir") + 2:])
+        "--model-dir", trainer.output_dir, "--load-epoch", str(RUN_EPOCHS)] + argv[i + 2:])
     torch.cuda.synchronize()
-    launches["rect"]["RPO run, eval-only"] = ra.launches
-    launches["masked"]["RPO run, eval-only"] = ma.launches
+    launches = (ra.launches, ma.launches)
+    n_eval = len(evaluator.dm.test_loader)
     eval_accuracy = re.findall(r"\* accuracy: ([\d.]+)%", eval_log)
     ok = eval_accuracy == accuracy and len(accuracy) == 1 and \
-        (ra.launches, ma.launches) == (n_layers * n_eval, text_layers)
-    print(f"RPO run eval-only (--load-epoch {RUN_EPOCHS}): accuracy {eval_accuracy} against the "
+        launches == (n_layers * n_eval, text_layers)
+    print(f"{label} eval-only (--load-epoch {RUN_EPOCHS}): accuracy {eval_accuracy} against the "
           f"final test's {accuracy}; launches rect {ra.launches}, masked {ma.launches} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("RPO run: the eval-only run does not reproduce the final test")
-    del trainer
-
+        fail(f"{label}: the eval-only run does not reproduce the final test")
     # the last test batch from the loaded checkpoint: kernels against the
     # plain versions (a text K/V cache built with the plain masked attention)
     images = [b for b in evaluator.dm.test_loader][-1]["img"]
     logits = evaluator.eval_step(images)
+    kernel_frozen = evaluator._frozen
     evaluator._frozen = rpo_core.make_frozen(evaluator.clip_params, evaluator.task,
                                              masked_attn=ma.masked_attention_reference)
     evaluator._text_f_cache = None
     plain = evaluator.eval_step(images, rect_attn=ra.rect_attention_reference,
                                 masked_attn=ma.masked_attention_reference)
+    evaluator._frozen, evaluator._text_f_cache = kernel_frozen, None
     diff = (logits.float() - plain.float()).abs().max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
     ok = bool(torch.isfinite(logits).all()) and diff <= SLICE_ATOL and agree >= SLICE_ARGMAX_AGREE
-    print(f"RPO run checkpoint, last test batch {tuple(logits.shape)}: vs both plain versions "
+    print(f"{label} checkpoint, last test batch {tuple(logits.shape)}: vs both plain versions "
           f"max_abs_err {diff:.3e} (tol {SLICE_ATOL}), argmax agree {agree:.4f} (>= "
           f"{SLICE_ARGMAX_AGREE}) {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        fail("RPO run: the checkpoint's logits disagree with the plain versions")
+        fail(f"{label}: the checkpoint's logits disagree with the plain versions")
+    return evaluator, launches
 
-    # epoch 1 again on the plain versions: the same seed, so the same
-    # few-shot draw, batches and first prompts; the warm-up LR
+
+def rpo_run(out: str, smi: str, phase10_rate: float, n_layers: int, text_layers: int) -> dict:
+    """Phase 11: RPO trained by the CLI, main_K24 on Synthetic (10 classes,
+    16 shots: 40 steps an epoch at batch 4), ViT-B/16 in bf16, seed 1, two
+    epochs, each step one replay of the one-step graph, then the final
+    test; an eval-only run of the checkpoint; the last test batch's logits
+    and epoch 1's losses against the plain versions, all under the
+    directory ``out``.  Returns the launches by path, epoch 1's losses and
+    the engine's rate and means."""
+    from rpo_tpu_torch.cli import set_random_seed
+    from rpo_tpu_torch.engine import build_trainer
+    from rpo_tpu_torch.engine.optim import lr_at_epoch
+    from rpo_tpu_torch.methods import rpo as rpo_core
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    trainer, log, argv, step_losses, engine_rate, accuracy, made, replayed = cli_train(
+        out, smi, "RPO run", (), n_layers, text_layers)
+    launches = {"rect": {"RPO run": ra.launches}, "masked": {"RPO run": ma.launches},
+                "rect_replayed": {"RPO run": replayed}}
+    n_steps = len(trainer.dm.train_loader_x)
+    batch_size = int(trainer.cfg.DATALOADER.TRAIN_X.BATCH_SIZE)
+    print(f"RPO run on {smi}: {engine_rate:.1f} train images/s over epoch 2 against phase 10's "
+          f"{phase10_rate:.1f} (the trainer's eager step alone, median of {N_TRAIN_TIMED}) in this "
+          f"call", flush=True)
+    # the engine's step over a third epoch's batches made beforehand: the
+    # same loop without the loader's threads beside it (the prompts move
+    # on; the checkpoint is already written)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for batch in made:
+        trainer.forward_backward(batch)
+    torch.cuda.synchronize()
+    bare_rate = batch_size * len(made) / (time.perf_counter() - t0)
+    print(f"RPO run on {smi}: {bare_rate:.1f} train images/s over {len(made)} steps of batches "
+          f"made beforehand (the engine's step on host batches, no loader threads), against "
+          f"{engine_rate:.1f} with the loader", flush=True)
+    evaluator, (rect, masked) = eval_only_check(out, "RPO run", trainer, argv, accuracy, n_layers,
+                                                text_layers)
+    launches["rect"]["RPO run, eval-only"] = rect
+    launches["masked"]["RPO run, eval-only"] = masked
+    del trainer
+
+    # epoch 1 again on the plain versions, eagerly: the same seed, so the
+    # same few-shot draw, batches and first prompts; the warm-up LR
     set_random_seed(1)
     plain = build_trainer(evaluator.cfg.clone(), clip_params=evaluator.clip_params,
                           device=evaluator.device)
@@ -643,6 +854,119 @@ def rpo_run(out: str, smi: str, phase10_rate: float, n_layers: int, text_layers:
     if not ok:
         fail("RPO run: epoch 1's losses disagree with the plain run")
     del plain
+    return {"launches": launches, "losses": step_losses[:n_steps], "rate": engine_rate,
+            "log": log}
+
+
+def device_resize_check(label: str, trainer, batches) -> None:
+    """INPUT.DEVICE_RESIZE's augmentation on the card, on the loader's
+    own sources, boxes and flips (``batches``), compared in uint8 steps
+    (the normalisation undone and rounded):
+
+    - against the same function on the CPU, which the CPU tests hold to
+      the JAX package's (they differ in the order of the float32 sums);
+    - against the host's resample (``data.transforms.resample``, Pillow's
+      bytes) of the crop, then the flip, as the host path does it
+      (Pillow sums in 22-bit fixed point; the JAX suite holds its device
+      resize to Pillow within two steps, tests/test_device_resize_path.py);
+
+    each at most PREP_STEPS apart on at most PREP_SHARE of the values; and
+    planted faults must fail the host check: the flips dropped, the boxes
+    replaced by the full frame."""
+    from rpo_tpu_torch.data.transforms import resample
+    from rpo_tpu_torch.ops.preprocess import _mean_std_u8, device_train_preprocess
+
+    size, cfg = trainer.clip_cfg.image_resolution, trainer.cfg.INPUT
+    img = torch.as_tensor(np.concatenate([b["img"] for b in batches]))
+    box = torch.as_tensor(np.concatenate([b["box"] for b in batches]))
+    flip = torch.as_tensor(np.concatenate([b["flip"] for b in batches]))
+
+    def u8(device, boxes=box, flips=flip):
+        m, s = _mean_std_u8(cfg.PIXEL_MEAN, cfg.PIXEL_STD, device)
+        x = device_train_preprocess(img.to(device), boxes.to(device), flips.to(device), size,
+                                    m, s)
+        return torch.round(x * s + m).cpu()
+
+    host = []
+    for src, (left, top, cw, ch), flipped in zip(img.numpy(), box.tolist(), flip.tolist()):
+        out = resample(src, (size, size), "bicubic", box=(left, top, left + cw, top + ch))
+        host.append(out[:, ::-1] if flipped else out)
+    host = torch.from_numpy(np.stack(host).astype(np.float32))
+
+    def apart(a, b):
+        diff = (a - b).abs()
+        return diff.max().item(), int((diff > 0).sum()), diff.numel()
+
+    card = u8(trainer.device)
+    checks = [("the same function on the CPU", apart(card, u8("cpu"))),
+              ("the host's resample", apart(card, host))]
+    full = torch.tensor([0, 0, img.shape[2], img.shape[1]], dtype=box.dtype).expand_as(box)
+    planted = [("flips dropped", apart(u8(trainer.device, flips=torch.zeros_like(flip)), host)),
+               ("boxes ignored", apart(u8(trainer.device, boxes=full), host))]
+    ok = all(mx <= PREP_STEPS and off <= PREP_SHARE * n for _, (mx, off, n) in checks) and \
+        all(mx > PREP_STEPS or off > PREP_SHARE * n for _, (mx, off, n) in planted)
+    print(f"{label}: device augmentation of {len(img)} loader images ({int(flip.sum())} "
+          f"flipped, {int((box[:, 2] < img.shape[2]).sum())} cropped) to {size} x {size} on the "
+          f"card, in uint8 steps: " + "; ".join(
+              f"vs {what}: max {mx:g} (<= {PREP_STEPS}), {off} of {n} values apart "
+              f"({off / n:.2e}, <= {PREP_SHARE:g})" for what, (mx, off, n) in checks) +
+          "; planted faults vs the host (must fail): " + "; ".join(
+              f"{what}: max {mx:g}, {off / n:.2e} apart" for what, (mx, off, n) in planted) +
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label}: the device augmentation disagrees with the host's, or a planted fault "
+             "passes")
+
+
+def rpo_run_one_dispatch(out: str, smi: str, phase11: dict, n_layers: int,
+                         text_layers: int) -> dict:
+    """Phase 12: phase 11's run with TRAIN.STEPS_PER_DISPATCH 4 (ten
+    replays of the four-step graph an epoch), epoch 1's losses against
+    phase 11's on the same batches; then the same with INPUT.DEVICE_RESIZE
+    224 (the sources, boxes and flips go to the device, where the step
+    crops, resizes and flips them): the log contract, finite losses, the
+    device augmentation against the host's resample on the loader's
+    boxes and flips (``device_resize_check``), the eval-only accuracy and
+    the checkpoint's logits against both plain versions.  Each run's
+    engine rate and means beside phase 11's.  Returns the launches by
+    path and the rect launches replayed."""
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    launches = {"rect": {}, "masked": {}, "rect_replayed": {}}
+    n = len(phase11["losses"])
+    p11_means = re.findall(r"epoch \[2/\d\] batch \[(\d+)/(\d+)\] time [\d.]+ \(([\d.]+)\) "
+                           r"data [\d.]+ \(([\d.]+)\)", phase11["log"])
+    p11_means = [(step, data) for b, nb, step, data in p11_means if b == nb]
+    for label, extra in (("RPO run, one dispatch", ["TRAIN.STEPS_PER_DISPATCH", "4"]),
+                         ("RPO run, one dispatch, DEVICE_RESIZE 224",
+                          ["TRAIN.STEPS_PER_DISPATCH", "4", "INPUT.DEVICE_RESIZE", "224"])):
+        sub = os.path.join(out, label.rsplit(", ", 1)[-1].replace(" ", "_"))
+        trainer, log, argv, losses, rate, accuracy, made, replayed = cli_train(
+            sub, smi, label, extra, n_layers, text_layers)
+        launches["rect"][label] = ra.launches
+        launches["masked"][label] = ma.launches
+        launches["rect_replayed"][label] = replayed
+        gap = (losses[:n] - phase11["losses"]).abs()
+        same = bool(torch.equal(losses[:n], phase11["losses"]))
+        ok = gap.max().item() <= TRAIN_LOSS_ATOL
+        print(f"{label}: epoch 1's {n} losses against phase 11's (one-step graph, the same "
+              f"batches): {'equal' if same else 'not equal'}, max_abs_err {gap.max().item():.3e}, "
+              f"{int((gap > 0).sum())} differ (tol {TRAIN_LOSS_ATOL:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"{label}: epoch 1's losses disagree with phase 11's")
+        print(f"{label} on {smi}: {rate:.1f} train images/s over epoch 2 against phase 11's "
+              f"{phase11['rate']:.1f}; phase 11's epoch-2 means (step, data) {p11_means}",
+              flush=True)
+        if "DEVICE_RESIZE" in label:
+            device_resize_check(label, trainer, made)
+            evaluator, (rect, masked) = eval_only_check(sub, label, trainer, argv, accuracy,
+                                                        n_layers, text_layers)
+            launches["rect"][f"{label}, eval-only"] = rect
+            launches["masked"][f"{label}, eval-only"] = masked
+            del evaluator
+        del trainer
     return launches
 
 
@@ -668,6 +992,7 @@ def main() -> int:
                                             stream_ms)
 
     # ---- 1. device --------------------------------------------------------
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1323,7 +1648,7 @@ def main() -> int:
     def zero_fused_counts():
         frl.attn_half_launches = frl.mlp_half_launches = 0
 
-    seen = profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO fused",
+    seen, _ = profile_eval_step(rpo.eval_step, batches[-1], smi, "RPO fused",
                              before=zero_fused_counts)
     cuda_per_call = {}
     for what, counter in (("fused_rect_attn_half", "attn_half_launches"),
@@ -1355,6 +1680,8 @@ def main() -> int:
     first_prompts = {key: t.clone() for key, t in rpo.params.items()}
     losses = [rpo.train_step(*batch, TRAIN_LR)[0] for batch in train_batches[:N_TRAIN_CHECK]]
     torch.cuda.synchronize()
+    eager_losses = torch.stack(losses)
+    eager_prompts = {key: t.clone() for key, t in rpo.params.items()}
     rect_launches["RPO train"] = check_launches("RPO train", ra, 2 * n_layers * N_TRAIN_CHECK)
     check_launches("RPO train", ma, text_layers)
     check_launches("RPO train", ftl, 0)
@@ -1430,17 +1757,28 @@ def main() -> int:
           f"{TRAIN_BATCH * len(step_s) / sum(step_s):.1f} over all", flush=True)
     profile_eval_step(lambda batch: rpo.train_step(*batch, TRAIN_LR), train_batches[-1], smi,
                       "RPO", "train step")
-    del rpo
     phase10_rate = TRAIN_BATCH / statistics.median(step_s)
+    graph_launches, rect_replayed = graphed_train(rpo, train_batches, first_prompts, eager_losses,
+                                                  eager_prompts, phase10_rate, smi, n_layers)
+    rect_launches.update(graph_launches)
+    del rpo
 
     # ---- 11. RPO run: the CLI trains main_K24 on Synthetic -----------------
     run_dir = tempfile.mkdtemp(prefix="rpo_run_")
     try:
-        run_launches = rpo_run(run_dir, smi, phase10_rate, n_layers, text_layers)
+        phase11 = rpo_run(run_dir, smi, phase10_rate, n_layers, text_layers)
+        rect_launches.update(phase11["launches"]["rect"])
+        masked_launches.update(phase11["launches"]["masked"])
+        rect_replayed.update(phase11["launches"]["rect_replayed"])
+
+        # ---- 12. RPO run, one dispatch a group of steps ---------------------
+        run_launches = rpo_run_one_dispatch(run_dir, smi, phase11, n_layers, text_layers)
+        rect_launches.update(run_launches["rect"])
+        masked_launches.update(run_launches["masked"])
+        rect_replayed.update(run_launches["rect_replayed"])
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    rect_launches.update(run_launches["rect"])
-    masked_launches.update(run_launches["masked"])
+    print(f"chip_smoke: phases 1-12 in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",
@@ -1450,6 +1788,9 @@ def main() -> int:
         "also_replaces": "rpo_tpu/ops/pallas_attention.py:114",
         "launches": sum(rect_launches.values()),
         "launches_by_path": rect_launches,
+        # a graph's kernels run at each replay, where no wrapper is called:
+        # the launches its capture recorded times its replays, by path
+        "replayed_by_path": rect_replayed,
         "max_abs_err": rect_err,
         **rect_attn_times,
         "square_197": sq_times,

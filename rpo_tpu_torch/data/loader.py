@@ -16,8 +16,11 @@ global ``random`` on the consumer thread only, the shuffle and then one
 seed for a private ``random.Random`` from which the producer draws every
 per-image augmentation plan in item order.  The global stream therefore
 advances by the same draws as the JAX loader's, and the two give equal
-batches.  Left for later: the native JPEG paths and the device-augment
-batches of INPUT.DEVICE_RESIZE, which a synthetic source never reaches.
+batches.  With INPUT.DEVICE_RESIZE a train batch carries the raw sources
+and the drawn crop boxes and flips instead (``_make_device_augment_batch``),
+which the train step applies on the device.  Left for later: the native
+JPEG paths, which a synthetic source never reaches (Pillow and the numpy
+resample decode and resize a file meanwhile).
 """
 from __future__ import annotations
 
@@ -62,6 +65,8 @@ class BatchLoader:
         return (len(self.items) + self.batch_size - 1) // self.batch_size
 
     def _make_batch(self, batch_items: List[Datum], rng=None) -> Dict[str, np.ndarray]:
+        if self.train and getattr(self.transform, "device_resize", 0):
+            return self._make_device_augment_batch(batch_items, rng=rng)
         # the plans are drawn here, in item order, from the private
         # per-epoch rng; the pool only decodes and resizes.  Eval batches
         # draw none (make_plan(train=False) is None)
@@ -85,6 +90,45 @@ class BatchLoader:
             out_lab[i] = it.label
             out_mask[i] = 1.0
         return {"img": out_img, "label": out_lab, "mask": out_mask, "n": len(batch_items)}
+
+    def _make_device_augment_batch(self, batch_items: List[Datum],
+                                   rng=None) -> Dict[str, np.ndarray]:
+        """A train batch of INPUT.DEVICE_RESIZE = S: the (S, S, 3) uint8
+        sources, 'box' (B, 4) int32 [left, top, crop_w, crop_h] and 'flip'
+        (B,) int32, which the train step applies on the device
+        (``ops.preprocess.device_train_preprocess``).  The plans are drawn
+        in item order from the private per-epoch ``rng``, as on the host
+        path; a source of another size than (S, S) has its crop applied
+        here (``raw_source``) and a full-frame box, as do rows without a
+        crop plan and padding rows."""
+        tp = self.transform
+        S = tp.device_resize
+        # one header read an image: the size feeds the plan and the check
+        sizes = [tp.image_size(it.impath) for it in batch_items]
+        plans = [tp.make_plan(it.impath, True, size=sz, rng=rng)
+                 for it, sz in zip(batch_items, sizes)]
+        exact = [sz == (S, S) for sz in sizes]
+        host_boxes = [None if (ex or plan is None) else plan[0]
+                      for ex, plan in zip(exact, plans)]
+        imgs = list(self.pool.map(lambda ib: tp.raw_source(ib[0].impath, box=ib[1]),
+                                  zip(batch_items, host_boxes)))
+        B = self.batch_size
+        out_img = np.zeros((B, S, S, 3), np.uint8)
+        out_lab = np.zeros((B,), np.int32)
+        out_mask = np.zeros((B,), np.float32)
+        out_box = np.tile(np.asarray([0, 0, S, S], np.int32), (B, 1))
+        out_flip = np.zeros((B,), np.int32)
+        for i, (im, it, plan) in enumerate(zip(imgs, batch_items, plans)):
+            out_img[i] = im
+            out_lab[i] = it.label
+            out_mask[i] = 1.0
+            if plan is not None:
+                box, flip = plan
+                if box is not None and exact[i]:
+                    out_box[i] = box
+                out_flip[i] = 1 if flip else 0
+        return {"img": out_img, "label": out_lab, "mask": out_mask, "n": len(batch_items),
+                "box": out_box, "flip": out_flip}
 
     def _order(self) -> List[int]:
         order = list(range(len(self.items)))

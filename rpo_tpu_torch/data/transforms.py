@@ -3,7 +3,10 @@ device.
 
 Port of ``rpo_tpu/data/transforms.py``.  The host decodes, resizes,
 crops and flips each image to an HWC uint8 array; the device turns the
-uint8 batch into normalised floats (``device_normalize_fn``).
+uint8 batch into normalised floats (``device_normalize_fn``).  With
+INPUT.DEVICE_RESIZE > 0 the host ships each image at that source size
+instead (``raw_source``) and the resize runs on the device
+(``ops/preprocess.py``).
 
 The resize is Pillow's ``Image.resize(..., BICUBIC | BILINEAR, box=...)``
 written in numpy (``resample``): the same filter taps, the same 22-bit
@@ -190,8 +193,9 @@ class TransformPipeline:
 
     Train: random_resized_crop and random_flip where INPUT.TRANSFORMS
     names them; eval: resize-shorter and center-crop.  Normalisation runs
-    on the device.  INPUT.DEVICE_RESIZE is not ported (the trainer
-    refuses it).
+    on the device.  With INPUT.DEVICE_RESIZE = S > 0, eval images leave
+    the host as (S, S) sources and the train batches' crops and flips run
+    on the device (``BatchLoader._make_device_augment_batch``).
     """
 
     def __init__(self, cfg_input):
@@ -201,6 +205,13 @@ class TransformPipeline:
         transforms = tuple(cfg_input.TRANSFORMS)
         self.use_rrc = "random_resized_crop" in transforms
         self.use_flip = "random_flip" in transforms
+        self.device_resize = int(getattr(cfg_input, "DEVICE_RESIZE", 0))
+        if self.device_resize and self.interpolation != "bicubic":
+            # the device resample is bicubic only; mixing kernels between
+            # the host and device paths would skew accuracy
+            raise ValueError(
+                "INPUT.DEVICE_RESIZE requires INPUT.INTERPOLATION 'bicubic' (got "
+                f"{self.interpolation!r}); all CLIP protocol configs set bicubic")
 
     def image_size(self, impath: str) -> Tuple[int, int]:
         """(width, height), from the header only for a file."""
@@ -232,7 +243,48 @@ class TransformPipeline:
         flip = bool(self.use_flip and rng.random() < 0.5)
         return (box, flip)
 
+    def raw_source(self, impath: str, box=None) -> np.ndarray:
+        """The (S, S, 3) uint8 source of the device-resize path.  An
+        (S, S) image ships as it is (its crop, resize and flip run on the
+        device); any other size is brought to (S, S) here: with ``box``
+        (a crop box in the image's own coordinates) the crop is applied
+        here, so that the augmentation still covers the whole frame,
+        without it the eval resize-shorter and centre crop."""
+        S = self.device_resize
+        img = load_image(impath)
+        h, w = img.shape[:2]
+        if (w, h) != (S, S):
+            if box is not None:
+                left, top, cw, ch = box
+                img = resample(img, (S, S), self.interpolation,
+                               box=(left, top, left + cw, top + ch))
+            else:
+                img = center_crop(resize_shorter(img, S, self.interpolation), S)
+        return np.ascontiguousarray(img, dtype=np.uint8)
+
     def __call__(self, impath: str, train: bool, plan=None) -> np.ndarray:
+        if not train and self.device_resize:
+            # eval: the raw source; the eval step resizes, crops and
+            # normalises on the device
+            return self.raw_source(impath)
+        if train and self.device_resize:
+            # the host equivalent of the device-augment batch for one
+            # item: the source, then the planned box and flip resampled
+            # here (the loader's batches run this on the device)
+            if plan is None:
+                plan = self.make_plan(impath, train)
+            box, flip = plan if plan is not None else (None, False)
+            S = self.device_resize
+            exact = self.image_size(impath) == (S, S)
+            # another size: the box (in the image's coordinates) is
+            # applied inside raw_source, and the device sees the full frame
+            img = self.raw_source(impath, box=None if exact else box)
+            left, top, cw, ch = box if (box is not None and exact) else (0, 0, S, S)
+            img = resample(img, (self.size, self.size), self.interpolation,
+                           box=(left, top, left + cw, top + ch))
+            if flip:
+                img = img[:, ::-1]
+            return np.ascontiguousarray(img)
         if train and plan is None:
             plan = self.make_plan(impath, train)
         img = load_image(impath)

@@ -1,22 +1,29 @@
 """SGD and the per-epoch LR schedule, with Dassl's semantics.
 
-Port of ``rpo_tpu/engine/optim.py``.  The prompts train with
-``torch.optim.SGD`` (momentum 0.9, weight decay 5e-4 by default), whose
-rules are the JAX package's ``sgd_update``:
+Port of ``rpo_tpu/engine/optim.py``.  The prompts train with momentum 0.9
+and weight decay 5e-4 by default, under the JAX package's ``sgd_update``
+rules (which are ``torch.optim.SGD``'s):
 
     g = grad + wd * p
     buf = g on the first update, else momentum * buf + (1 - dampening) * g
     p = p - lr * (momentum * buf + g if nesterov else buf)
 
-The learning rate of the epoch comes from ``lr_at_epoch`` on the host and
-is set on the optimizer before each step.  ``sgd_state_from_numpy``
-carries the JAX package's ``SGDState`` (a momentum pytree and an update
-count) into the optimizer; ``sgd_momentum`` reads it back.
+``SGD`` keeps that state in tensors on the parameters' device and updates
+them and the parameters in place with tensor operations only: the
+learning rate is a device scalar filled before a step, and the
+first-buffer rule is a device scalar too (the gradient's weight in the
+buffer: 1 before the first update, 1 - dampening after it).  Nothing in
+an update reads a value back to the host, so a CUDA graph can capture it
+(``methods/step_graph.py``), and the buffers keep their storage for the
+life of the optimizer.  The learning rate of the epoch comes from
+``lr_at_epoch`` on the host.  ``sgd_state_from_numpy`` carries the JAX
+package's ``SGDState`` (a momentum pytree and an update count) into it;
+``sgd_momentum`` reads it back.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Iterator, Mapping
+from typing import Any, Dict, Iterator, List, Mapping
 
 import numpy as np
 import torch
@@ -41,62 +48,111 @@ def tree_map(fn, tree: Mapping[str, Any], *rest: Mapping[str, Any]) -> Dict[str,
     }
 
 
+class SGD:
+    """The port's ``SGDState`` and ``sgd_update`` over the tensors of a
+    params tree, all on their device.  ``lr`` is a 0-d float32 tensor;
+    ``update`` reads it, never a Python number."""
+
+    def __init__(self, params: Mapping[str, Any], momentum: float = 0.9,
+                 weight_decay: float = 5e-4, nesterov: bool = False, dampening: float = 0.0):
+        if nesterov and dampening:
+            raise ValueError("Nesterov momentum requires zero dampening")
+        self.params = list(tree_leaves(params))
+        self.momentum = float(momentum)
+        self.weight_decay = float(weight_decay)
+        # at momentum 0 nesterov is plain SGD (the JAX buffer is the
+        # gradient itself), and no buffer is kept
+        self.nesterov = bool(nesterov and momentum > 0)
+        self.dampening = float(dampening)
+        device = self.params[0].device
+        self.lr = torch.zeros((), dtype=torch.float32, device=device)
+        self.buffers = [torch.zeros_like(p) for p in self.params] if self.momentum else []
+        # the gradient's weight in the buffer: 1 at the first update (the
+        # buffer is the gradient itself), 1 - dampening after it
+        self.grad_weight = torch.ones((), dtype=torch.float32, device=device)
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor an update reads or writes besides the gradients."""
+        return self.params + self.buffers + [self.lr, self.grad_weight]
+
+    def reset(self) -> None:
+        """Back to ``sgd_init``: zero buffers, no update yet (in place)."""
+        for b in self.buffers:
+            b.zero_()
+        self.grad_weight.fill_(1.0)
+
+    def set_lr(self, lr: float) -> None:
+        self.lr.fill_(float(lr))
+
+    def update(self, params: Mapping[str, Any], grads: Mapping[str, Any]) -> None:
+        """One ``sgd_update`` at ``self.lr``, in place: ``grads`` is a
+        tree of ``params``' structure, whose tensors must be the ones the
+        optimizer was built over."""
+        pairs = []  # (param, grad) in params' order, matched by key
+        tree_map(lambda p, g: pairs.append((p, g)), params, grads)
+        if len(pairs) != len(self.params) or any(
+                p is not q for (p, _), q in zip(pairs, self.params)):
+            raise ValueError("the optimizer was built over other parameter tensors")
+        for i, (p, g) in enumerate(pairs):
+            if self.weight_decay:
+                g = g.add(p, alpha=self.weight_decay)
+            if self.momentum:
+                buf = self.buffers[i]
+                buf.mul_(self.momentum).add_(g * self.grad_weight if self.dampening else g)
+                g = g.add(buf, alpha=self.momentum) if self.nesterov else buf
+            p.addcmul_(g, self.lr, value=-1.0)
+        if self.momentum and self.dampening:
+            self.grad_weight.fill_(1.0 - self.dampening)
+
+
 def sgd(params: Mapping[str, Any], momentum: float = 0.9, weight_decay: float = 5e-4,
-        nesterov: bool = False, dampening: float = 0.0) -> torch.optim.SGD:
-    """``torch.optim.SGD`` over the tensors of ``params`` (``sgd_init``),
-    one tensor at a time (``foreach=False``); the LR is set at each step.
-
+        nesterov: bool = False, dampening: float = 0.0) -> SGD:
+    """A fresh ``SGD`` over the tensors of ``params`` (``sgd_init``).
     Nesterov momentum with dampening raises, as in the JAX trainer and in
-    torch.  At momentum 0 nesterov is plain SGD in both (the JAX buffer
-    is the gradient itself), so it is passed on only with a momentum."""
-    if nesterov and dampening:
-        raise ValueError("Nesterov momentum requires zero dampening")
-    return torch.optim.SGD(list(tree_leaves(params)), lr=0.0, momentum=momentum,
-                           dampening=dampening, weight_decay=weight_decay,
-                           nesterov=bool(nesterov and momentum > 0), foreach=False)
+    torch."""
+    return SGD(params, momentum, weight_decay, nesterov, dampening)
 
 
-def sgd_step(optimizer: torch.optim.SGD, params: Mapping[str, Any],
-             grads: Mapping[str, Any], lr: float) -> None:
-    """One ``sgd_update`` at ``lr``: the gradients of ``params`` (a tree
-    of its structure) in place of ``.grad`` for the step."""
-    for group in optimizer.param_groups:
-        group["lr"] = float(lr)
-    tree_map(lambda p, g: setattr(p, "grad", g), params, grads)
-    optimizer.step()
-    for p in tree_leaves(params):
-        p.grad = None
+def sgd_step(optimizer: SGD, params: Mapping[str, Any], grads: Mapping[str, Any],
+             lr: float) -> None:
+    """One ``sgd_update`` at ``lr`` (a host number, written into the
+    optimizer's device scalar first)."""
+    optimizer.set_lr(lr)
+    optimizer.update(params, grads)
 
 
-def sgd_momentum(optimizer: torch.optim.SGD, params: Mapping[str, Any]) -> Dict[str, Any]:
-    """The momentum tree of ``SGDState``: zeros before the first update."""
-    def buf(p):
-        b = optimizer.state.get(p, {}).get("momentum_buffer")
-        return torch.zeros_like(p) if b is None else b
-    return tree_map(buf, params)
+def sgd_momentum(optimizer: SGD, params: Mapping[str, Any]) -> Dict[str, Any]:
+    """The momentum tree of ``SGDState``: zeros before the first update
+    (and always at momentum 0)."""
+    if not optimizer.buffers:
+        return tree_map(torch.zeros_like, params)
+    it = iter(optimizer.buffers)
+    return tree_map(lambda _: next(it), params)
 
 
-def sgd_state_from_numpy(optimizer: torch.optim.SGD, params: Mapping[str, Any],
+def sgd_state_from_numpy(optimizer: SGD, params: Mapping[str, Any],
                          momentum: Mapping[str, Any], step: int) -> None:
     """Install the JAX package's ``SGDState(momentum, step)`` (arrays or
-    tensors in ``params``' structure, an update count) in ``optimizer``:
-    at step 0 no buffer (the next update writes the gradient itself,
-    torch's and ``sgd_update``'s first-buffer rule), past it a float32
-    copy of each momentum array on its parameter's device."""
-    def install(p, m):
-        state = optimizer.state[p]
-        if int(step) == 0:
-            state.pop("momentum_buffer", None)
-        else:
-            if isinstance(m, torch.Tensor):
-                a = m.detach().to(p.device, torch.float32, copy=True)
-            else:
-                a = torch.from_numpy(np.array(m, dtype=np.float32)).to(p.device)
-            if tuple(a.shape) != tuple(p.shape):
-                raise ValueError(f"momentum of shape {tuple(a.shape)} for a parameter of "
-                                 f"shape {tuple(p.shape)}")
-            state["momentum_buffer"] = a
-    tree_map(install, params, momentum)
+    tensors in ``params``' structure, an update count) in ``optimizer``,
+    copied into its buffers: at step 0 zero buffers and the first-buffer
+    rule ahead (the next update writes the gradient itself, torch's and
+    ``sgd_update``'s rule), past it a float32 copy of each momentum
+    array."""
+    def install(p, m, buf):
+        a = m.detach() if isinstance(m, torch.Tensor) else torch.from_numpy(
+            np.array(m, dtype=np.float32))
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"momentum of shape {tuple(a.shape)} for a parameter of "
+                             f"shape {tuple(p.shape)}")
+        if buf is not None and int(step) != 0:
+            buf.copy_(a.to(buf.device, torch.float32))
+
+    bufs = iter(optimizer.buffers)
+    tree_map(lambda p, m: install(p, m, next(bufs, None)), params, momentum)
+    if int(step) == 0:
+        optimizer.reset()
+    else:
+        optimizer.grad_weight.fill_(1.0 - optimizer.dampening)
 
 
 def lr_at_epoch(cfg_optim, epoch: int) -> float:

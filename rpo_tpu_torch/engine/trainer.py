@@ -13,6 +13,10 @@ Port of ``rpo_tpu/engine/trainer.py``, with the same contract:
     saved, never class-dependent buffers, so a checkpoint loads under
     another class set.
 
+With TRAIN.STEPS_PER_DISPATCH = N > 1 the epoch loop hands full groups
+of N batches to ``forward_backward_multi`` where the trainer has one (one
+dispatch a group) and the trailing partial group to ``forward_backward``.
+
 A subclass provides ``build_model(**kwargs)``, ``forward_backward``,
 ``model_inference(_async)``, the checkpoint-state accessors and
 ``self.device``.  ``build_trainer`` builds one through ``from_cfg``.
@@ -293,9 +297,6 @@ class TrainerBase:
             # the reference's own NaN detector (torch anomaly mode)
             torch.autograd.set_detect_anomaly(True)
             print("NaN debugging enabled (torch.autograd.set_detect_anomaly)")
-        if int(self.cfg.TRAIN.STEPS_PER_DISPATCH) > 1:
-            print(f"TRAIN.STEPS_PER_DISPATCH={int(self.cfg.TRAIN.STEPS_PER_DISPATCH)}: this "
-                  "trainer has no grouped step, so every batch runs as its own step")
 
     def train(self) -> None:
         self.before_train()
@@ -336,13 +337,14 @@ class TrainerBase:
         loader = self.dm.train_loader_x
         self.num_batches = len(loader)
         print_freq = max(1, int(self.cfg.TRAIN.PRINT_FREQ))
+        group_size = max(1, int(self.cfg.TRAIN.STEPS_PER_DISPATCH))
+        use_multi = group_size > 1 and hasattr(self, "forward_backward_multi")
         t_start = time.time()
         data_t, batch_t = [], []
         t0 = time.time()
-        for self.batch_idx, batch in enumerate(device_prefetch(loader, self.device)):
-            data_t.append(time.time() - t0)
-            summary = self.forward_backward(batch)
-            batch_t.append(time.time() - t0 - data_t[-1])
+
+        def handle(summary, bt=None):
+            batch_t.append(bt if bt is not None else time.time() - t0 - data_t[-1])
             meter.update(summary)
             if (self.batch_idx + 1) % print_freq == 0 or self.batch_idx + 1 == self.num_batches:
                 nb_remain = (self.max_epoch - self.epoch - 1) * self.num_batches + (
@@ -360,7 +362,45 @@ class TrainerBase:
                 )
             if self.batch_idx + 1 == self.num_batches:
                 self.update_lr()
-            t0 = time.time()
+
+        if use_multi:
+            # full groups of TRAIN.STEPS_PER_DISPATCH batches go to the
+            # grouped step, one dispatch each; a group's data and step
+            # time are split evenly over its batches
+            self.batch_idx = -1
+            group = []
+
+            def flush():
+                nonlocal group, t0
+                load_elapsed = time.time() - t0
+                summaries = self.forward_backward_multi(group)
+                step_elapsed = time.time() - t0 - load_elapsed
+                for summary in summaries:
+                    self.batch_idx += 1
+                    data_t.append(load_elapsed / len(group))
+                    handle(summary, bt=step_elapsed / len(group))
+                group = []
+                t0 = time.time()
+
+            for batch in loader:
+                group.append(batch)
+                if len(group) == group_size:
+                    flush()
+            # the trailing partial group through the one-step program, as
+            # in the JAX package, which compiles no grouped program for a
+            # remainder: here no graph is captured for one
+            for batch in group:
+                self.batch_idx += 1
+                data_t.append(time.time() - t0)
+                handle(self.forward_backward(batch))
+                t0 = time.time()
+        else:
+            # host batches: the trainer's step moves them to the device
+            # (on the card through its graph's pinned staging buffers)
+            for self.batch_idx, batch in enumerate(loader):
+                data_t.append(time.time() - t0)
+                handle(self.forward_backward(batch))
+                t0 = time.time()
         epoch_time = time.time() - t_start
         print(f"epoch [{self.epoch + 1}/{self.max_epoch}] done in {epoch_time:.1f}s")
 

@@ -14,6 +14,18 @@ top-1 accuracy) with its optimizer state.  A subclass's
 and, for a method that trains here, the ``loss_and_grads`` function that
 ``_make_train_step`` builds.
 
+The engine's hooks (``forward_backward``, ``forward_backward_multi``)
+run a step, or a group of N steps (TRAIN.STEPS_PER_DISPATCH), as one
+replay of a captured CUDA graph on the card (``step_graph.StepGraph``,
+JAX's ``jax.jit`` and ``make_multi``); ``before_train`` captures the
+graphs the epoch loop will replay when TRAIN.PREWARM_COMPILE is set,
+else each is captured at its first use.  On the CPU, which a caller
+asks for, the hooks run the same steps one by one.  ``train_step`` and
+``loss_and_grads`` run one step eagerly, with the kernels replaceable by
+their plain versions.  Images go through ``make_image_prep``: with
+INPUT.DEVICE_RESIZE a train batch is the {img, box, flip} of raw sources
+and the crops, resized on the device (``ops/preprocess.py``).
+
 A trainer is built one of two ways.  Its keyword constructor takes the
 settings as arguments (the caller then sets ``current_lr`` before a
 step); ``TrainerBase.from_cfg`` (``engine.build_trainer``, the CLI)
@@ -28,7 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, device_normalize_fn
+from ..data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
 from ..device import DeviceLike, resolve_device
 from ..engine import optim
 from ..engine.trainer import TrainerBase, _load_checkpoint_file
@@ -36,7 +48,65 @@ from ..models.clip.model import ARCHS, cast_params
 from ..models.clip.pretrained import load_backbone
 from ..ops.attention import Attention, MaskedAttention
 from ..ops.masked_attention import masked_attention
+from ..ops.preprocess import _mean_std_u8, device_eval_preprocess, device_train_preprocess
 from ..ops.rect_attention import rect_attention
+from .step_graph import StepGraph, batch_spec, train_batch_spec
+
+
+def make_image_prep(size: int, mean, std, dtype, device_resize: int = 0):
+    """uint8 images -> the normalised ``dtype`` batch, by what arrives
+    (``make_image_prep`` of the JAX package, with INPUT.SIZE = ``size``):
+
+    - without ``device_resize``, ``(x - mean*255) / (std*255)`` in
+      float32 (``device_normalize_fn``'s arithmetic);
+    - with it, a {img, box, flip} train batch goes through
+      ``device_train_preprocess`` (crops, resize and flips on the
+      device), a (B, size, size, 3) batch is normalised, and a batch of
+      any other size (the raw eval sources) goes through
+      ``device_eval_preprocess``.
+
+    The constants are copied to a device once, at their first use there,
+    so that a captured step copies nothing from the host."""
+    stats = {}
+
+    def on(device):
+        if device not in stats:
+            stats[device] = _mean_std_u8(mean, std, device)
+        return stats[device]
+
+    def prep(images_u8):
+        if isinstance(images_u8, dict):
+            img = images_u8["img"]
+            x = device_train_preprocess(img, images_u8["box"], images_u8["flip"], size,
+                                        *on(img.device))
+        elif not int(device_resize) or tuple(images_u8.shape[1:3]) == (size, size):
+            m, s = on(images_u8.device)
+            x = (images_u8.float() - m) / s
+        else:
+            x = device_eval_preprocess(images_u8, size, *on(images_u8.device))
+        return x.to(dtype)
+
+    return prep
+
+
+def prewarm_plan(group: int, num_batches: int):
+    """Which train programs will the epoch loop dispatch?  As
+    ``engine.trainer._run_epoch_inner``: the grouped one for full groups
+    of ``group`` batches only; the trailing partial group (and every
+    batch, when ``group == 1`` or the epoch is shorter than one group)
+    goes through the one-step program.  Returns ``(warm_grouped,
+    warm_single)``."""
+    warm_grouped = group > 1 and num_batches >= group
+    warm_single = not warm_grouped or num_batches % group != 0
+    return warm_grouped, warm_single
+
+
+def _rows(images, a: int, b: int):
+    """Rows [a, b) of an image batch: a tensor, or the device-resize
+    {img, box, flip} dict."""
+    if isinstance(images, dict):
+        return {key: t[a:b] for key, t in images.items()}
+    return images[a:b]
 
 
 def prec_dtype(prec: str) -> torch.dtype:
@@ -69,12 +139,15 @@ class CLIPMethodTrainer(TrainerBase):
         microbatch: int = 0,
         pixel_mean=CLIP_PIXEL_MEAN,
         pixel_std=CLIP_PIXEL_STD,
+        device_resize: int = 0,
     ):
         """``clip_params`` (a nested dict of tensors on ``device``) replaces
         the random backbone, which is drawn from ``seed`` otherwise
         (``load_backbone``): no CLIP checkpoint ships with the repository.
         Images are normalised with ``pixel_mean`` and ``pixel_std``
-        (INPUT.PIXEL_MEAN/STD; CLIP's, as every method config sets them).
+        (INPUT.PIXEL_MEAN/STD; CLIP's, as every method config sets them),
+        through ``make_image_prep`` with ``device_resize``
+        (INPUT.DEVICE_RESIZE: 0 for images already at the model's size).
         ``momentum``, ``weight_decay``, ``nesterov`` and ``dampening`` are
         the SGD settings (OPTIM.MOMENTUM, WEIGHT_DECAY, SGD_NESTEROV,
         SGD_DAMPNING; nesterov with dampening raises); ``microbatch``
@@ -97,9 +170,12 @@ class CLIPMethodTrainer(TrainerBase):
         if clip_params is None:
             clip_params, _ = load_backbone(backbone, seed=self.seed, device=self.device)
         self.clip_params = cast_params(clip_params, dtype)
-        self._normalize = device_normalize_fn(pixel_mean, pixel_std, dtype=dtype)
+        self._normalize = make_image_prep(self.clip_cfg.image_resolution, pixel_mean, pixel_std,
+                                          dtype, device_resize)
         self.params = None
         self._loss_and_grads = None
+        self._optimizer = None
+        self._graphs = {}  # (steps, batch_spec) -> StepGraph
         self.build_method()
         self._reset_optimizer()
 
@@ -110,10 +186,6 @@ class CLIPMethodTrainer(TrainerBase):
     def check_cfg(self, cfg) -> None:
         if cfg.TRAINER[self.prec_key].PREC not in ("fp16", "fp32", "amp"):
             raise ValueError(f"TRAINER.{self.prec_key}.PREC must be fp16, fp32 or amp")
-        if int(cfg.INPUT.DEVICE_RESIZE):
-            raise NotImplementedError(
-                "INPUT.DEVICE_RESIZE > 0 (the resize on the device) is not ported to "
-                "rpo_tpu_torch yet")
 
     def method_kwargs(self, cfg) -> dict:
         """The method's own keyword settings, read from ``cfg`` and the data
@@ -123,7 +195,8 @@ class CLIPMethodTrainer(TrainerBase):
     def build_model(self, clip_params: Optional[dict] = None, device: DeviceLike = None) -> None:
         """The keyword constructor with the settings of ``self.cfg``: the
         backbone and its precision, the seed, the SGD settings,
-        TRAIN.MICROBATCH, the pixel statistics and the method's own; then
+        TRAIN.MICROBATCH, the pixel statistics, INPUT.DEVICE_RESIZE and the
+        method's own; then
         MODEL.INIT_WEIGHTS and the model's registration.  ``clip_params``
         replaces the random backbone; ``device`` None is the CUDA card."""
         cfg = self.cfg
@@ -149,7 +222,7 @@ class CLIPMethodTrainer(TrainerBase):
             momentum=float(cfg.OPTIM.MOMENTUM), weight_decay=float(cfg.OPTIM.WEIGHT_DECAY),
             nesterov=bool(cfg.OPTIM.SGD_NESTEROV), dampening=float(cfg.OPTIM.SGD_DAMPNING),
             microbatch=int(cfg.TRAIN.MICROBATCH), pixel_mean=cfg.INPUT.PIXEL_MEAN,
-            pixel_std=cfg.INPUT.PIXEL_STD)
+            pixel_std=cfg.INPUT.PIXEL_STD, device_resize=int(cfg.INPUT.DEVICE_RESIZE))
         if cfg.MODEL.INIT_WEIGHTS:
             # the trainable tensors from a checkpoint file before training
             # (the reference's load_pretrained_weights)
@@ -169,10 +242,15 @@ class CLIPMethodTrainer(TrainerBase):
             raise RuntimeError("build_method must set self._frozen")
 
     def _reset_optimizer(self) -> None:
-        """A fresh SGD over the trainable tensors (``sgd_init``); none for
-        a method with nothing to train (zero-shot CLIP)."""
-        self._optimizer = optim.sgd(self.params, self._momentum, self._weight_decay,
-                                    self._nesterov, self._dampening) if self.params else None
+        """SGD at ``sgd_init`` over the trainable tensors: the optimizer's
+        buffers zeroed in place once it exists (a captured step keeps
+        reading them), else a new one; none for a method with nothing to
+        train (zero-shot CLIP)."""
+        if self._optimizer is not None:
+            self._optimizer.reset()
+        elif self.params:
+            self._optimizer = optim.sgd(self.params, self._momentum, self._weight_decay,
+                                        self._nesterov, self._dampening)
 
     # -- training -------------------------------------------------------------
     def _make_train_step(self, logits_fn, precompute=None):
@@ -195,11 +273,12 @@ class CLIPMethodTrainer(TrainerBase):
 
         def batch_logits(p, frozen, images_u8, rect_attn, masked_attn):
             ctx = None if precompute is None else precompute(p, frozen, masked_attn)
-            B = images_u8.shape[0]
+            B = (images_u8["img"] if isinstance(images_u8, dict) else images_u8).shape[0]
             if not 0 < mb < B or B % mb:
                 return logits_fn(p, frozen, images_u8, ctx, rect_attn, masked_attn)
             return torch.cat([
-                logits_fn(p, frozen, images_u8[i * mb:(i + 1) * mb], ctx, rect_attn, masked_attn)
+                logits_fn(p, frozen, _rows(images_u8, i * mb, (i + 1) * mb), ctx, rect_attn,
+                          masked_attn)
                 for i in range(B // mb)])
 
         def loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn, masked_attn):
@@ -218,11 +297,16 @@ class CLIPMethodTrainer(TrainerBase):
         return loss_and_grads
 
     def _batch(self, images_u8, labels, mask):
-        """A host batch on the device: uint8 images, int64 labels and the
-        float32 row mask (0 for a padded row)."""
-        return (torch.as_tensor(images_u8).to(self.device),
-                torch.as_tensor(labels).to(self.device, torch.int64),
-                torch.as_tensor(mask).to(self.device, torch.float32))
+        """A batch on the device: uint8 images (or the device-resize
+        {img, box, flip} dict), int64 labels and the float32 row mask (0
+        for a padded row)."""
+        dev = self.device
+        if isinstance(images_u8, dict):
+            images = {key: torch.as_tensor(t).to(dev) for key, t in images_u8.items()}
+        else:
+            images = torch.as_tensor(images_u8).to(dev)
+        return (images, torch.as_tensor(labels).to(dev, torch.int64),
+                torch.as_tensor(mask).to(dev, torch.float32))
 
     def loss_and_grads(
         self,
@@ -243,6 +327,18 @@ class CLIPMethodTrainer(TrainerBase):
             raise NotImplementedError(f"{type(self).__name__} does not train in this package yet")
         return self._loss_and_grads(self.params, self._frozen, *batch, rect_attn, masked_attn)
 
+    def _step_on(self, images, labels, mask, rect_attn: Attention = rect_attention,
+                 masked_attn: MaskedAttention = masked_attention):
+        """One SGD step on a batch on the device, at the optimizer's
+        learning-rate tensor: (masked loss, masked top-1 accuracy) as
+        device scalars.  Tensor operations only, no host sync: the step a
+        ``StepGraph`` captures, and ``train_step``'s."""
+        loss, logits, grads = self._grads_on((images, labels, mask), rect_attn, masked_attn)
+        self._optimizer.update(self.params, grads)
+        self._text_f_cache = None
+        acc = torch.sum((logits.argmax(-1) == labels) * mask) / torch.sum(mask)
+        return loss, acc
+
     def train_step(
         self,
         images_u8,
@@ -252,37 +348,103 @@ class CLIPMethodTrainer(TrainerBase):
         rect_attn: Attention = rect_attention,
         masked_attn: MaskedAttention = masked_attention,
     ):
-        """One SGD step at ``lr`` on a (B, H, W, 3) uint8 batch; returns
-        the masked loss and the masked top-1 accuracy as device scalars
-        (no host sync).  Clears the text-feature cache."""
+        """One SGD step at ``lr`` on a (B, H, W, 3) uint8 batch (or the
+        device-resize {img, box, flip}), run eagerly; returns the masked
+        loss and the masked top-1 accuracy as device scalars (no host
+        sync).  Clears the text-feature cache."""
         batch = self._batch(images_u8, labels, mask)
-        loss, logits, grads = self._grads_on(batch, rect_attn, masked_attn)
-        _, labels, mask = batch
-        optim.sgd_step(self._optimizer, self.params, grads, lr)
-        self._text_f_cache = None
-        acc = torch.sum((logits.argmax(-1) == labels) * mask) / torch.sum(mask)
-        return loss, acc
+        self._optimizer.set_lr(lr)
+        return self._step_on(*batch, rect_attn, masked_attn)
 
-    def forward_backward(self, batch) -> dict:
-        """The engine's hook: one step on ``{"img", "label", "mask"}`` at
-        ``self.current_lr``; ``{"loss"}`` (and ``"acc"`` in percent where
-        ``log_acc``), device scalars."""
-        if self.current_lr is None:
-            raise RuntimeError("set current_lr (lr_at_epoch) before a train step")
-        loss, acc = self.train_step(batch["img"], batch["label"], batch["mask"], self.current_lr)
+    @staticmethod
+    def _train_images(batch):
+        """The images of an engine batch: its ``img``, or with
+        INPUT.DEVICE_RESIZE the {img, box, flip} dict."""
+        if "box" in batch:
+            return {"img": batch["img"], "box": batch["box"], "flip": batch["flip"]}
+        return batch["img"]
+
+    def _summary(self, loss, acc) -> dict:
         summary = {"loss": loss}
         if self.log_acc:
             summary["acc"] = 100.0 * acc
         return summary
+
+    def _graph(self, n_steps: int, spec) -> StepGraph:
+        """The captured graph of ``n_steps`` steps over batches of
+        ``spec``, captured at its first use."""
+        graph = self._graphs.get((n_steps, spec))
+        if graph is None:
+            graph = StepGraph(self._step_on, n_steps, spec, self._graph_bound, self.device)
+            self._graphs[(n_steps, spec)] = graph
+        return graph
+
+    def _graph_bound(self) -> list:
+        """What a captured step reads or writes besides its inputs."""
+        return list(optim.tree_leaves(self.params)) + self._optimizer.state_tensors() + [
+            self._frozen]
+
+    def _dispatch(self, batches) -> list:
+        """The steps of ``batches`` at ``self.current_lr``: one replay of
+        the graph of ``len(batches)`` steps on the card, the eager steps
+        in sequence on the CPU.  Returns their summaries."""
+        if self.current_lr is None:
+            raise RuntimeError("set current_lr (lr_at_epoch) before a train step")
+        if self._loss_and_grads is None:
+            raise NotImplementedError(f"{type(self).__name__} does not train in this package yet")
+        if self.device.type != "cuda":
+            return [self._summary(*self.train_step(self._train_images(b), b["label"], b["mask"],
+                                                   self.current_lr)) for b in batches]
+        graph = self._graph(len(batches), batch_spec(batches[0]))
+        self._optimizer.set_lr(self.current_lr)
+        losses, accs = graph.run(batches)
+        self._text_f_cache = None
+        return [self._summary(losses[i], accs[i]) for i in range(len(batches))]
+
+    def forward_backward(self, batch) -> dict:
+        """The engine's hook: one step on ``{"img", "label", "mask"}`` (and
+        ``"box"``, ``"flip"`` with INPUT.DEVICE_RESIZE) at
+        ``self.current_lr``; ``{"loss"}`` (and ``"acc"`` in percent where
+        ``log_acc``), device scalars."""
+        return self._dispatch([batch])[0]
+
+    def forward_backward_multi(self, batches) -> list:
+        """A group of batches as ONE dispatch (TRAIN.STEPS_PER_DISPATCH):
+        the same sequential SGD steps, one replay of the group's graph on
+        the card; a summary per batch."""
+        return self._dispatch(list(batches))
+
+    def before_train(self) -> None:
+        super().before_train()
+        if bool(self.cfg.TRAIN.PREWARM_COMPILE):
+            self._prewarm_graphs()
+
+    def _prewarm_graphs(self) -> None:
+        """Capture, before the first batch, the train graphs that
+        ``prewarm_plan`` says the epoch loop will replay, at the loader's
+        batch shapes (JAX's ``_prewarm_compiles``, run here after the
+        resume, so the graphs read the resumed state).  Nothing to
+        prepare on the CPU, where the steps run eagerly."""
+        if self.device.type != "cuda" or self._loss_and_grads is None:
+            return
+        cfg = self.cfg
+        spec = train_batch_spec(int(cfg.DATALOADER.TRAIN_X.BATCH_SIZE),
+                                self.clip_cfg.image_resolution, int(cfg.INPUT.DEVICE_RESIZE))
+        group = max(1, int(cfg.TRAIN.STEPS_PER_DISPATCH))
+        warm_grouped, warm_single = prewarm_plan(group, len(self.dm.train_loader_x))
+        steps = [n for n, warm in ((group, warm_grouped), (1, warm_single)) if warm]
+        for n in steps:
+            self._graph(n, spec)
+        print(f"Captured the train step as CUDA graph(s) of {steps} step(s) a replay")
 
     def get_optim_state(self, name: str):
         """The momentum tree (zeros before the first update)."""
         return optim.sgd_momentum(self._optimizer, self.params)
 
     def set_optim_state(self, name: str, state) -> None:
-        """Install a checkpoint's momentum tree.  A resumed optimizer is
-        past its first update (step 1), which only dampening's first-buffer
-        rule reads."""
+        """Install a checkpoint's momentum tree, copied into the
+        optimizer's buffers.  A resumed optimizer is past its first update
+        (step 1), which only dampening's first-buffer rule reads."""
         optim.sgd_state_from_numpy(self._optimizer, self.params, state, step=1)
 
     @torch.no_grad()
@@ -323,7 +485,9 @@ class CLIPMethodTrainer(TrainerBase):
     def set_ckpt_state(self, name: str, state) -> None:
         """Install checkpointed trainable state (a dict of arrays or tensors,
         or of such dicts, as CoCoOp's ``meta_net``; each leaf copied to
-        float32 on the device), validated against the method's own:
+        float32 on the device, into the trainable tensor it replaces, so
+        that a captured train step goes on reading it), validated against
+        the method's own:
         Dassl's strict=False semantics — stale / unexpected top-level keys
         are dropped with a warning, missing ones keep their current init,
         but a SHAPE mismatch of any leaf fails here at the load site."""
@@ -369,7 +533,11 @@ class CLIPMethodTrainer(TrainerBase):
                 )
             return arr
 
-        self.params = {k: install(k, old, state[k]) if k in state else old
-                       for k, old in self.params.items()}
+        # validate every leaf before the first copy: a bad checkpoint
+        # changes nothing
+        new = {k: install(k, old, state[k]) for k, old in self.params.items() if k in state}
+        with torch.no_grad():
+            optim.tree_map(lambda old, arr: old.copy_(arr), {k: self.params[k] for k in new},
+                           new)
         self._text_f_cache = None
         self._reset_optimizer()

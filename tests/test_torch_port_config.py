@@ -147,13 +147,24 @@ def _rpo_cfg(tmp_path, *opts):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """INPUT.DEVICE_RESIZE, a CLIP checkpoint and a ResNet backbone for RPO
-    each raise at build; none carries on."""
+    """A CLIP checkpoint and a ResNet backbone for RPO each raise at build;
+    none carries on.  INPUT.DEVICE_RESIZE, ported since, builds: its eval
+    sources (S, S) and its train batches' {img, box, flip} take the
+    device-resize routes of the trainer's image prep, and a non-bicubic
+    interpolation with it raises."""
     from rpo_tpu_torch.engine import build_trainer
     import rpo_tpu_torch.methods.rpo_trainer  # noqa: F401
 
-    with pytest.raises(NotImplementedError, match="DEVICE_RESIZE"):
-        build_trainer(_rpo_cfg(tmp_path, "INPUT.DEVICE_RESIZE", "64"), device="cpu")
+    trainer = build_trainer(_rpo_cfg(tmp_path, "INPUT.DEVICE_RESIZE", "64"), device="cpu")
+    assert trainer.dm.train_loader_x.transform.device_resize == 64
+    src = torch.zeros((2, 64, 64, 3), dtype=torch.uint8)
+    assert tuple(trainer._normalize(src).shape) == (2, 32, 32, 3)
+    train = {"img": src, "box": torch.tensor([[0, 0, 64, 64], [8, 4, 40, 30]], dtype=torch.int32),
+             "flip": torch.tensor([0, 1], dtype=torch.int32)}
+    assert tuple(trainer._normalize(train).shape) == (2, 32, 32, 3)
+    with pytest.raises(ValueError, match="DEVICE_RESIZE requires"):
+        build_trainer(_rpo_cfg(tmp_path, "INPUT.DEVICE_RESIZE", "64", "INPUT.INTERPOLATION",
+                               "bilinear"), device="cpu")
     with pytest.raises(ValueError, match="requires a ViT backbone"):
         build_trainer(_rpo_cfg(tmp_path, "MODEL.BACKBONE.NAME", "TINY_RN"), device="cpu")
     monkeypatch.setenv("CLIP_CHECKPOINT", str(tmp_path / "ViT-B-16.pt"))

@@ -490,3 +490,39 @@ def test_rpo_train_step_kernels_against_plain_on_gpu():
         a = rpo.train_step(images, labels, mask, 0.01)[0].item()
         b = plain.train_step(images, labels, mask, 0.01, **refs)[0].item()
         assert abs(a - b) <= 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,out", [(224, 224), (64, 224), (224, 64)])
+def test_device_train_preprocess_on_gpu_equals_cpu(S, out):
+    """The INPUT.DEVICE_RESIZE augmentation on the card against the same
+    function on the CPU (which tests/test_torch_port_preprocess.py holds
+    to the JAX package's): full-frame and random crop boxes, flips on and
+    off; in uint8 steps (the normalisation undone and rounded) at most
+    one step apart, on at most 1e-3 of the values (the two differ only in
+    the order of the float32 sums, where a pass lands on a half step)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.ops.preprocess import _mean_std_u8, device_train_preprocess
+
+    rng = np.random.RandomState(5)
+    n = 8
+    imgs = torch.from_numpy(rng.randint(0, 256, (n, S, S, 3)).astype(np.uint8))
+    w = rng.randint(S // 4, S + 1, n)
+    h = rng.randint(S // 4, S + 1, n)
+    left, top = rng.randint(0, S - w + 1), rng.randint(0, S - h + 1)
+    boxes = torch.from_numpy(np.stack([left, top, w, h], 1).astype(np.int32))
+    boxes[0] = torch.tensor([0, 0, S, S])
+    flips = torch.from_numpy((np.arange(n) % 2).astype(np.int32))
+    mean = [0.48145466, 0.4578275, 0.40821073]
+    std = [0.26862954, 0.26130258, 0.27577711]
+
+    def u8(device):
+        m, s = _mean_std_u8(mean, std, device)
+        x = device_train_preprocess(imgs.to(device), boxes.to(device), flips.to(device), out,
+                                    m, s)
+        return torch.round(x * s + m).cpu()
+
+    diff = (u8("cuda") - u8("cpu")).abs()
+    assert diff.max().item() <= 1
+    assert int((diff > 0).sum()) <= 1e-3 * diff.numel()

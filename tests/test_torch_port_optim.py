@@ -1,7 +1,9 @@
 """The port's SGD and LR schedule against rpo_tpu.engine.optim.
 
 The same gradients (numpy, from a seed) go through the JAX ``sgd_update``
-and through ``torch.optim.SGD`` as the port builds and steps it.
+and through the port's SGD as the port builds and steps it
+(``engine.optim.SGD``, whose state is device tensors updated in place;
+tests/test_torch_port_multi_step.py holds it to ``torch.optim.SGD`` too).
 Tolerances: the schedule is the same float64 arithmetic (rtol 1e-9); an
 SGD step is the same float32 operations, up to a fused multiply-add
 (rtol 1e-6, atol 1e-7, as tests/test_optim_parity.py holds the JAX SGD
