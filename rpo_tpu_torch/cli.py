@@ -22,7 +22,7 @@ import torch
 
 # registry side effects: the trainers and datasets the engine can name
 import rpo_tpu_torch.data.datasets  # noqa: F401
-import rpo_tpu_torch.methods.rpo_trainer  # noqa: F401
+import rpo_tpu_torch.methods  # noqa: F401
 from rpo_tpu_torch.device import resolve_device
 from rpo_tpu_torch.engine import build_trainer, get_cfg_default, setup_logger
 

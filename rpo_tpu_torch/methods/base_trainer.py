@@ -11,8 +11,9 @@ top-1 accuracy) with its optimizer state.  A subclass's
   text_features(params, frozen) -> per-task tensors for eval (or None)
   eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn) -> logits
 
-and, for a method that trains here, the ``loss_and_grads`` function that
-``_make_train_step`` builds.
+and, for a method that trains, the ``loss_and_grads`` function that
+``_make_train_step`` builds (or ``_make_grad_accum_train_step``, exact
+gradient accumulation over image chunks: CoCoOp at batch 16 and above).
 
 The engine's hooks (``forward_backward``, ``forward_backward_multi``)
 run a step, or a group of N steps (TRAIN.STEPS_PER_DISPATCH), as one
@@ -183,8 +184,12 @@ class CLIPMethodTrainer(TrainerBase):
         raise NotImplementedError
 
     # -- the engine's build, from a config (TrainerBase.from_cfg) -----------
+    def cfg_prec(self, cfg) -> str:
+        """The method's PREC in ``cfg``: TRAINER.<prec_key>.PREC."""
+        return cfg.TRAINER[self.prec_key].PREC
+
     def check_cfg(self, cfg) -> None:
-        if cfg.TRAINER[self.prec_key].PREC not in ("fp16", "fp32", "amp"):
+        if self.cfg_prec(cfg) not in ("fp16", "fp32", "amp"):
             raise ValueError(f"TRAINER.{self.prec_key}.PREC must be fp16, fp32 or amp")
 
     def method_kwargs(self, cfg) -> dict:
@@ -196,11 +201,11 @@ class CLIPMethodTrainer(TrainerBase):
         """The keyword constructor with the settings of ``self.cfg``: the
         backbone and its precision, the seed, the SGD settings,
         TRAIN.MICROBATCH, the pixel statistics, INPUT.DEVICE_RESIZE and the
-        method's own; then
+        method's own; then, for a method with trainable tensors,
         MODEL.INIT_WEIGHTS and the model's registration.  ``clip_params``
         replaces the random backbone; ``device`` None is the CUDA card."""
         cfg = self.cfg
-        prec = cfg.TRAINER[self.prec_key].PREC
+        prec = self.cfg_prec(cfg)
         backbone = cfg.MODEL.BACKBONE.NAME
         if prec == "amp":
             print("PREC 'amp': bf16 compute, no GradScaler (bf16 keeps fp32's exponent "
@@ -223,6 +228,8 @@ class CLIPMethodTrainer(TrainerBase):
             nesterov=bool(cfg.OPTIM.SGD_NESTEROV), dampening=float(cfg.OPTIM.SGD_DAMPNING),
             microbatch=int(cfg.TRAIN.MICROBATCH), pixel_mean=cfg.INPUT.PIXEL_MEAN,
             pixel_std=cfg.INPUT.PIXEL_STD, device_resize=int(cfg.INPUT.DEVICE_RESIZE))
+        if self.params is None:  # nothing to initialise or save (zero-shot CLIP)
+            return
         if cfg.MODEL.INIT_WEIGHTS:
             # the trainable tensors from a checkpoint file before training
             # (the reference's load_pretrained_weights)
@@ -253,7 +260,7 @@ class CLIPMethodTrainer(TrainerBase):
                                         self._nesterov, self._dampening)
 
     # -- training -------------------------------------------------------------
-    def _make_train_step(self, logits_fn, precompute=None):
+    def _make_train_step(self, logits_fn, precompute=None, microbatch: Optional[int] = None):
         """The standard step's loss and gradients over
         ``logits_fn(params, frozen, images_u8, ctx, rect_attn, masked_attn)
         -> (B, n_cls)``: masked cross-entropy in which padded rows weigh 0,
@@ -265,11 +272,12 @@ class CLIPMethodTrainer(TrainerBase):
         ``ctx`` is per-step work shared across chunks (RPO's text tower,
         on the live prompts, under grad), made once by
         ``precompute(params, frozen, masked_attn)``, None without one.
-        ``self._microbatch`` computes the forward in chunks of that many
-        images inside the one loss and gradient; it engages only for
-        batches it divides evenly and is smaller than, else the step is
-        monolithic.  The math is the monolithic step's row by row."""
-        mb = self._microbatch
+        ``microbatch`` (``self._microbatch``, TRAIN.MICROBATCH, when None)
+        computes the forward in chunks of that many images inside the one
+        loss and gradient; it engages only for batches it divides evenly
+        and is smaller than, else the step is monolithic.  The math is the
+        monolithic step's row by row."""
+        mb = self._microbatch if microbatch is None else int(microbatch)
 
         def batch_logits(p, frozen, images_u8, rect_attn, masked_attn):
             ctx = None if precompute is None else precompute(p, frozen, masked_attn)
@@ -295,6 +303,55 @@ class CLIPMethodTrainer(TrainerBase):
             return loss.detach(), logits.detach(), optim.tree_map(lambda _: next(it), leaves)
 
         return loss_and_grads
+
+    def _make_grad_accum_train_step(self, precompute, chunk_logits_fn, chunk_size: int):
+        """Exact gradient accumulation over image chunks, with the
+        ``loss_and_grads`` signature of ``_make_train_step``'s (the JAX
+        package's ``_make_grad_accum_train_step``).
+
+        ``precompute(frozen, images_u8, rect_attn) -> (B, ...)`` is the
+        shared per-batch work, run once without grad.  It takes no params:
+        a param-dependent precompute would drop its gradients across
+        chunks and make the accumulation inexact.  The chunk is
+        ``chunk_size`` rows, decremented until it divides B (a batch below
+        it is one chunk).  Each chunk's ``chunk_logits_fn(params, frozen,
+        ctx_chunk, masked_attn) -> (c, n_cls)`` runs forward and backward
+        at once, so that one chunk's activations are alive at a time, and
+        adds the gradient of sum(nll * mask).  Divided by sum(mask), the
+        sums are the loss and the gradients; the logits are the chunks'
+        in order.  A Python loop: inside a captured graph it unrolls."""
+
+        def loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn, masked_attn):
+            with torch.no_grad():
+                batch_ctx = precompute(frozen, images_u8, rect_attn)
+            B = batch_ctx.shape[0]
+            c = max(1, min(int(chunk_size), B))
+            while B % c:
+                c -= 1
+            leaves = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
+            flat = list(optim.tree_leaves(leaves))
+            grads, nll_sum, logits = None, 0.0, []
+            for i in range(0, B, c):
+                with torch.enable_grad():
+                    chunk_logits = chunk_logits_fn(leaves, frozen, batch_ctx[i:i + c], masked_attn)
+                    logp = torch.log_softmax(chunk_logits, dim=-1)
+                    nll = -logp.gather(-1, labels[i:i + c, None])[:, 0]
+                    chunk_sum = torch.sum(nll * mask[i:i + c])
+                    chunk_grads = torch.autograd.grad(chunk_sum, flat)
+                grads = chunk_grads if grads is None else [
+                    a + b for a, b in zip(grads, chunk_grads)]
+                nll_sum = nll_sum + chunk_sum.detach()
+                logits.append(chunk_logits.detach())
+            denom = torch.sum(mask)
+            it = iter(grads)
+            return (nll_sum / denom, torch.cat(logits),
+                    optim.tree_map(lambda _: next(it) / denom, leaves))
+
+        return loss_and_grads
+
+    def _no_train_step(self) -> NotImplementedError:
+        return NotImplementedError(f"{type(self).__name__} has no train step; the trainers that "
+                                   "train are RPO, CoOp, CoCoOp and LP")
 
     def _batch(self, images_u8, labels, mask):
         """A batch on the device: uint8 images (or the device-resize
@@ -324,7 +381,7 @@ class CLIPMethodTrainer(TrainerBase):
 
     def _grads_on(self, batch, rect_attn, masked_attn):
         if self._loss_and_grads is None:
-            raise NotImplementedError(f"{type(self).__name__} does not train in this package yet")
+            raise self._no_train_step()
         return self._loss_and_grads(self.params, self._frozen, *batch, rect_attn, masked_attn)
 
     def _step_on(self, images, labels, mask, rect_attn: Attention = rect_attention,
@@ -352,6 +409,8 @@ class CLIPMethodTrainer(TrainerBase):
         device-resize {img, box, flip}), run eagerly; returns the masked
         loss and the masked top-1 accuracy as device scalars (no host
         sync).  Clears the text-feature cache."""
+        if self._loss_and_grads is None:
+            raise self._no_train_step()
         batch = self._batch(images_u8, labels, mask)
         self._optimizer.set_lr(lr)
         return self._step_on(*batch, rect_attn, masked_attn)
@@ -391,7 +450,7 @@ class CLIPMethodTrainer(TrainerBase):
         if self.current_lr is None:
             raise RuntimeError("set current_lr (lr_at_epoch) before a train step")
         if self._loss_and_grads is None:
-            raise NotImplementedError(f"{type(self).__name__} does not train in this package yet")
+            raise self._no_train_step()
         if self.device.type != "cuda":
             return [self._summary(*self.train_step(self._train_images(b), b["label"], b["mask"],
                                                    self.current_lr)) for b in batches]

@@ -1,4 +1,4 @@
-"""CoCoOp: Conditional Context Optimization (Zhou et al., 2022), evaluation side.
+"""CoCoOp: Conditional Context Optimization (Zhou et al., 2022).
 
 Port of ``rpo_tpu/methods/cocoop.py``.  A meta-net (Linear d_e -> d_e/16
 -> ReLU -> Linear -> d_t) maps each image's normalised CLIP feature to a
@@ -7,8 +7,15 @@ once per (image, class).  The eval path is the JAX package's flattened
 branch: per chunk of images, the (chunk x n_cls) prompts are one batch of
 text towers, and every layer of those towers is one launch of the
 whole-layer kernel (``ops/fused_text_layer.py``); the image tower goes to
-``rect_attention``.  CoCoOp has no per-task text features.  Training is
-not ported yet.
+``rect_attention``.  CoCoOp has no per-task text features.
+
+The fused text layer is forward-only, so a train step runs the text
+towers block by block on ``masked_attention`` under grad: below a batch
+of ``ACCUM_BATCH`` one monolithic step, from it on exact gradient
+accumulation over chunks of ``ACCUM_CHUNK`` images behind one frozen
+image tower over the batch (``_make_grad_accum_train_step``).
+Registered as ``"CoCoOp"`` for the engine (TRAINER.COCOOP's N_CTX,
+CTX_INIT and PREC).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.layers import TextLayer
 from ..models.clip.model import encode_image
 from ..ops.attention import Attention, MaskedAttention
@@ -24,9 +32,12 @@ from ..ops.fused_text_layer import fused_text_layer, with_kernel_layout
 from ..ops.masked_attention import masked_attention
 from ..ops.rect_attention import rect_attention
 from .base_trainer import CLIPMethodTrainer
-from .coop import CoOpTask, _plan, init_ctx, make_task, text_encoder
+from .coop import CoOpTask, init_ctx, make_task, text_encoder
 
 Params = Dict[str, torch.Tensor]
+
+ACCUM_BATCH = 16  # train batches from this size on accumulate over chunks
+ACCUM_CHUNK = 8  # images a chunk of the accumulation (rpo_tpu/methods/cocoop.py:225)
 
 
 def init_meta_net(gen: torch.Generator, vis_dim: int, ctx_dim: int) -> Params:
@@ -60,11 +71,11 @@ def prompt_assembler(frozen_emb: torch.Tensor, task: CoOpTask):
     plan's index tensors and the frozen embeddings' gather are made once,
     for every chunk."""
     n_cls, L, d = frozen_emb.shape
-    dev = frozen_emb.device
-    emb_idx = _plan(task.emb_idx, L, dev).long()[:, :, None].expand(n_cls, L, d)
+    plan = task.on(frozen_emb.device, L)
+    emb_idx = plan["emb_idx"][:, :, None].expand(n_cls, L, d)
     g_emb = torch.gather(frozen_emb, 1, emb_idx)[None]
-    ctx_idx = _plan(task.ctx_idx, L, dev).long()
-    ctx_mask = _plan(task.ctx_mask, L, dev)[None, :, :, None]
+    ctx_idx = plan["ctx_idx"]
+    ctx_mask = plan["ctx_mask"][None, :, :, None]
 
     def assemble(ctx_b: torch.Tensor) -> torch.Tensor:
         return torch.where(ctx_mask, ctx_b.to(frozen_emb.dtype)[:, ctx_idx], g_emb)
@@ -99,7 +110,7 @@ def cocoop_logits(
     ctx_shifted = params["ctx"].float()[None] + bias[:, None, :]  # (B, n_ctx, ctx_dim)
 
     emb = clip_params["text"]["token_embedding"]
-    tokens = torch.from_numpy(task.text_tokens[:, : task.text_len].astype(np.int64)).to(emb.device)
+    tokens = task.on(emb.device)["tokens"]
     frozen_emb = emb[tokens]
     scale = torch.exp(clip_params["logit_scale"].float())
     n_cls, L = tokens.shape
@@ -131,10 +142,12 @@ def eval_chunk(batch: int) -> int:
     return chunk
 
 
+@TRAINER_REGISTRY.register()
 class CoCoOp(CLIPMethodTrainer):
-    """The eval half of the JAX package's ``CoCoOp`` trainer: the context and
-    meta-net, the task, the eval step and the checkpoint remap."""
+    """The JAX package's ``CoCoOp`` trainer: the context and meta-net, the
+    task, the eval step, the train step and the checkpoint remap."""
 
+    prec_key = "COCOOP"
     model_name = "prompt_learner"
 
     def __init__(self, classnames: Sequence[str], n_ctx: int = 4, ctx_init: str = "", **kwargs):
@@ -147,23 +160,74 @@ class CoCoOp(CLIPMethodTrainer):
         self.ctx_init = ctx_init
         super().__init__(**kwargs)
 
+    def method_kwargs(self, cfg) -> dict:
+        tcfg = cfg.TRAINER.COCOOP
+        return {"classnames": self.dm.classnames, "n_ctx": int(tcfg.N_CTX),
+                "ctx_init": tcfg.CTX_INIT}
+
     def build_method(self) -> None:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         cfg = self.clip_cfg
         ctx_params, prompt_prefix, n_ctx = init_ctx(
             gen, self.clip_params, cfg, len(self.classnames), self.n_ctx, False, self.ctx_init
         )
+        print(f'Initial context: "{prompt_prefix}"')
+        print(f"Number of context words (tokens): {n_ctx}")
         self.params = {
             "ctx": ctx_params["ctx"],
             "meta_net": init_meta_net(gen, cfg.embed_dim, cfg.text_width),
         }
-        self.task = make_task(cfg, self.classnames, n_ctx, False, "end", prompt_prefix)
+        self.task = task = make_task(cfg, self.classnames, n_ctx, False, "end", prompt_prefix)
         # the text tower's weight matrices also in the fused kernel's layout,
         # laid out once here for every eval launch
         text = self.clip_params["text"]
         self._frozen = {"clip": {**self.clip_params, "text": {
             **text, "blocks": with_kernel_layout(text["blocks"])}}}
-        self._install_steps(None, None)  # no text features; eval_step below
+        normalize = self._normalize
+
+        # training: the text towers block by block on masked_attn (the
+        # fused layer is forward-only); small batches in one step
+        def logits_fn(params, frozen, images_u8, _ctx, rect_attn, masked_attn):
+            return cocoop_logits(params, frozen["clip"], task, normalize(images_u8),
+                                 rect_attn=rect_attn, text_layer=None, masked_attn=masked_attn)
+
+        # large batches: the frozen image tower once over the batch, in
+        # float32, then the chunks' text towers with their gradients one
+        # chunk at a time
+        def precompute(frozen, images_u8, rect_attn):
+            return encode_image(frozen["clip"], task.cfg, normalize(images_u8), rect_attn).float()
+
+        def chunk_logits(params, frozen, imf, masked_attn):
+            return cocoop_logits(params, frozen["clip"], task, None, image_features=imf,
+                                 text_layer=None, masked_attn=masked_attn)
+
+        steps = self._train_steps = {
+            "monolithic": self._make_train_step(logits_fn, microbatch=0),
+            "accumulated": self._make_grad_accum_train_step(precompute, chunk_logits, ACCUM_CHUNK),
+        }
+
+        def loss_and_grads(params, frozen, images_u8, *rest):
+            B = (images_u8["img"] if isinstance(images_u8, dict) else images_u8).shape[0]
+            return steps["accumulated" if B >= ACCUM_BATCH else "monolithic"](
+                params, frozen, images_u8, *rest)
+
+        # no text features; eval_step below
+        self._install_steps(None, None, loss_and_grads)
+
+    def loss_and_grads_of(
+        self,
+        kind: str,
+        images_u8,
+        labels,
+        mask,
+        rect_attn: Attention = rect_attention,
+        masked_attn: MaskedAttention = masked_attention,
+    ):
+        """``loss_and_grads`` by the step of ``kind``, "monolithic" or
+        "accumulated", whatever the batch: for a comparison of the two."""
+        return self._train_steps[kind](self.params, self._frozen,
+                                       *self._batch(images_u8, labels, mask), rect_attn,
+                                       masked_attn)
 
     @torch.no_grad()
     def eval_step(

@@ -1,4 +1,4 @@
-"""CoOp: Context Optimization (Zhou et al., 2022), evaluation side.
+"""CoOp: Context Optimization (Zhou et al., 2022).
 
 Port of ``rpo_tpu/methods/coop.py``.  Learnable context vectors (n_ctx, d)
 -- or (n_cls, n_ctx, d) with CSC -- are spliced into the embedded class
@@ -9,7 +9,11 @@ against frozen image features.
 The per-class assembly is a host-precomputed (n_cls, 77) index plan
 consumed by one gather and one ``where``, as in the JAX package.  The
 causal text tower's shared (1, 1, L, L) bias goes to ``masked_attention``
-and the image tower to ``rect_attention``.  Training is not ported yet.
+and the image tower to ``rect_attention``.  A train step runs the text
+tower once, under grad (the masked kernel's backward is the plain
+recompute), and the frozen image tower without grad, in TRAIN.MICROBATCH
+chunks where it is set.  Registered as ``"CoOp"`` for the engine
+(TRAINER.COOP's N_CTX, CSC, CLASS_TOKEN_POSITION, CTX_INIT and PREC).
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.layers import TextLayer, layer_norm
 from ..models.clip.model import CLIPConfig, causal_mask, encode_image, text_transformer_run
 from ..ops.attention import Attention, MaskedAttention
@@ -46,6 +51,24 @@ class CoOpTask:
     # causal mask: a query position only attends to keys <= itself and
     # only EOT positions are gathered.
     text_len: int = 77
+    _copies: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
+
+    def on(self, device, L: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """The tokens and the plan, columns [:L] (``text_len`` by default),
+        as tensors on ``device``: int64 ``tokens``, ``ctx_idx`` and
+        ``emb_idx``, bool ``ctx_mask``.  Copied once, at their first use
+        there, so that a captured train step copies nothing from the host."""
+        L = self.text_len if L is None else int(L)
+        key = (str(torch.device(device)), L)
+        if key not in self._copies:
+            def cut(a, dtype):
+                return torch.from_numpy(np.ascontiguousarray(a[:, :L]).astype(dtype)).to(device)
+
+            self._copies[key] = {"tokens": cut(self.text_tokens, np.int64),
+                                 "ctx_idx": cut(self.ctx_idx, np.int64),
+                                 "emb_idx": cut(self.emb_idx, np.int64),
+                                 "ctx_mask": cut(self.ctx_mask, bool)}
+        return self._copies[key]
 
 
 def build_position_plan(
@@ -148,11 +171,6 @@ def init_ctx(
     return {"ctx": ctx}, prompt_prefix, n_ctx
 
 
-def _plan(a: np.ndarray, L: int, device) -> torch.Tensor:
-    """Columns [:L] of a plan array as a tensor on ``device``."""
-    return torch.from_numpy(np.ascontiguousarray(a[:, :L])).to(device)
-
-
 def assemble_prompt_embeddings(
     ctx: torch.Tensor, frozen_emb: torch.Tensor, task: CoOpTask
 ) -> torch.Tensor:
@@ -162,15 +180,15 @@ def assemble_prompt_embeddings(
     the tokenized prompts (n_cls, L, d), where L may be the truncated
     ``task.text_len``; the plan arrays are sliced to match."""
     n_cls, L, d = frozen_emb.shape
-    dev = frozen_emb.device
+    plan = task.on(frozen_emb.device, L)
     ctx_full = ctx.to(frozen_emb.dtype)
     if ctx_full.dim() == 2:
         ctx_full = ctx_full[None].expand(task.n_cls, *ctx_full.shape)
-    ctx_idx = _plan(task.ctx_idx, L, dev).long()[:, :, None].expand(n_cls, L, d)
-    emb_idx = _plan(task.emb_idx, L, dev).long()[:, :, None].expand(n_cls, L, d)
+    ctx_idx = plan["ctx_idx"][:, :, None].expand(n_cls, L, d)
+    emb_idx = plan["emb_idx"][:, :, None].expand(n_cls, L, d)
     g_ctx = torch.gather(ctx_full, 1, ctx_idx)
     g_emb = torch.gather(frozen_emb, 1, emb_idx)
-    return torch.where(_plan(task.ctx_mask, L, dev)[:, :, None], g_ctx, g_emb)
+    return torch.where(plan["ctx_mask"][:, :, None], g_ctx, g_emb)
 
 
 def text_encoder(
@@ -205,7 +223,7 @@ def coop_text_features(
 ) -> torch.Tensor:
     """(n_cls, embed_dim) class text features in the backbone's dtype."""
     emb = clip_params["text"]["token_embedding"]
-    tokens = torch.from_numpy(task.text_tokens[:, : task.text_len].astype(np.int64)).to(emb.device)
+    tokens = task.on(emb.device)["tokens"]
     prompts_emb = assemble_prompt_embeddings(params["ctx"], emb[tokens], task)
     return text_encoder(clip_params, task.cfg, prompts_emb, tokens, masked_attn)
 
@@ -234,10 +252,12 @@ def coop_logits(
     return scale * img @ txt.T
 
 
+@TRAINER_REGISTRY.register()
 class CoOp(CLIPMethodTrainer):
-    """The eval half of the JAX package's ``CoOp`` trainer: the context,
-    the task, the per-task text features and the eval step."""
+    """The JAX package's ``CoOp`` trainer: the context, the task, the
+    per-task text features, the eval step and the train step."""
 
+    prec_key = "COOP"
     model_name = "prompt_learner"
 
     def __init__(
@@ -259,12 +279,20 @@ class CoOp(CLIPMethodTrainer):
         self.ctx_init = ctx_init
         super().__init__(**kwargs)
 
+    def method_kwargs(self, cfg) -> dict:
+        tcfg = cfg.TRAINER.COOP
+        return {"classnames": self.dm.classnames, "n_ctx": int(tcfg.N_CTX),
+                "csc": bool(tcfg.CSC), "position": tcfg.CLASS_TOKEN_POSITION,
+                "ctx_init": tcfg.CTX_INIT}
+
     def build_method(self) -> None:
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.params, prompt_prefix, n_ctx = init_ctx(
             gen, self.clip_params, self.clip_cfg, len(self.classnames), self.n_ctx,
             self.csc, self.ctx_init,
         )
+        print(f'Initial context: "{prompt_prefix}"')
+        print(f"Number of context words (tokens): {n_ctx}")
         self.task = make_task(
             self.clip_cfg, self.classnames, n_ctx, self.csc, self.position, prompt_prefix
         )
@@ -280,4 +308,13 @@ class CoOp(CLIPMethodTrainer):
             return coop_logits(params, frozen["clip"], task, normalize(images_u8), text_f=text_f,
                                rect_attn=rect_attn, masked_attn=masked_attn)
 
-        self._install_steps(text_features, eval_step)
+        # the text tower is the per-step work the TRAIN.MICROBATCH chunks
+        # share: once a step, on the live context, under grad
+        def precompute(params, frozen, masked_attn):
+            return coop_text_features(params, frozen["clip"], task, masked_attn)
+
+        def logits_fn(params, frozen, images_u8, text_f, rect_attn, masked_attn):
+            return eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn)
+
+        self._install_steps(text_features, eval_step,
+                            self._make_train_step(logits_fn, precompute))

@@ -30,6 +30,7 @@ replay shows its kernels on the device.
 """
 from __future__ import annotations
 
+import gc
 from contextlib import contextmanager
 from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 
@@ -87,6 +88,25 @@ def state_kept(tensors: Sequence[torch.Tensor]):
         with torch.no_grad():
             for t, s in zip(tensors, saved):
                 t.copy_(s)
+
+
+@contextmanager
+def no_collection():
+    """Keep Python's cyclic collector off for the body: a dead trainer's
+    graph freed inside a capture (its executable destroyed, its memory
+    pool released) would invalidate the capture.  The collection that
+    would have run there runs first instead: ``torch.cuda.graph``
+    collects before a capture only under
+    ``torch.compiler.config.force_cudagraph_gc``, off by default, so
+    without it the dead trainers' graph pools stay held."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepGraph:
@@ -155,8 +175,9 @@ class StepGraph:
             current.wait_stream(side)
             before = _counts()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.losses, self.accs = self._steps(step)
+            with no_collection():
+                with torch.cuda.graph(self.graph):
+                    self.losses, self.accs = self._steps(step)
             after = _counts()
         self.launches_per_replay: Dict[str, int] = {
             f"{module.__name__.rsplit('.', 1)[-1]}.{name}": a - b

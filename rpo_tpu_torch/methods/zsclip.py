@@ -5,9 +5,12 @@ the normalised text features of one hand template per dataset;
 ``ZeroshotCLIP2`` ensembles IMAGENET_TEMPLATES_SELECT (plus the dataset's
 template, except for ImageNet): per-template features normalised, the
 mean over templates normalised again.  The backbone runs in bfloat16
-whatever the method's PREC, as in the JAX package.  Both are evaluation
-only; the trainer plumbing (device, backbone, cached text features, eval
-step) is ``CLIPMethodTrainer``'s.
+whatever the config says, as in the JAX package.  Both are evaluation
+only (``--eval-only``): their train hook raises, nothing is saved, and a
+model directory is not read.  The trainer plumbing (device, backbone,
+cached text features, eval step) is ``CLIPMethodTrainer``'s.  Registered
+as ``"ZeroshotCLIP"`` and ``"ZeroshotCLIP2"`` for the engine, which
+picks the templates by DATASET.NAME.
 
 The causal text towers send their shared (1, 1, L, L) bias to
 ``masked_attention`` and the image tower goes to ``rect_attention``.
@@ -19,7 +22,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import DeviceLike
+from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.model import CLIPConfig, encode_image, encode_text
 from ..ops.attention import Attention, MaskedAttention
 from ..ops.masked_attention import masked_attention
@@ -73,29 +76,31 @@ def zeroshot_logits(
     return scale * imf @ text_f.T
 
 
+@TRAINER_REGISTRY.register()
 class ZeroshotCLIP(CLIPMethodTrainer):
     """Zero-shot CLIP with the dataset's hand template: nothing trained,
     the text features computed once, the backbone in bfloat16."""
 
-    def __init__(
-        self,
-        classnames: Sequence[str],
-        dataset_name: str = "Caltech101",
-        backbone: str = "ViT-B/16",
-        seed: int = 1,
-        device: DeviceLike = None,
-        clip_params: Optional[dict] = None,
-    ):
-        """``clip_params`` (a nested dict of tensors on ``device``) replaces
-        the random backbone, which is drawn from ``seed`` otherwise: no CLIP
-        checkpoint ships with the repository."""
+    def __init__(self, classnames: Sequence[str], dataset_name: str = "Caltech101", **kwargs):
+        """``kwargs`` go to ``CLIPMethodTrainer`` (backbone, seed, device,
+        clip_params: a nested dict of tensors on the device that replaces
+        the random backbone, drawn from ``seed`` otherwise, since no CLIP
+        checkpoint ships with the repository), with PREC fp16 whatever it
+        says."""
         self.classnames = list(classnames)
         self.dataset_name = dataset_name
-        super().__init__(backbone=backbone, prec="fp16", seed=seed, device=device,
-                         clip_params=clip_params)
+        super().__init__(**{**kwargs, "prec": "fp16"})
+
+    def cfg_prec(self, cfg) -> str:
+        return "fp16"  # no TRAINER.<name>.PREC: always bfloat16
+
+    def method_kwargs(self, cfg) -> dict:
+        return {"classnames": self.dm.classnames, "dataset_name": cfg.DATASET.NAME}
 
     def _select_templates(self):
-        return [CUSTOM_TEMPLATES[self.dataset_name]]
+        temp = CUSTOM_TEMPLATES[self.dataset_name]
+        print(f"Prompts template: {temp!r}")
+        return [temp]
 
     def text_tokens(self) -> torch.Tensor:
         """(n_templates, n_cls, L) tokens of this method's templates."""
@@ -116,7 +121,18 @@ class ZeroshotCLIP(CLIPMethodTrainer):
 
         self._install_steps(text_features, eval_step)
 
+    def forward_backward(self, batch):
+        raise RuntimeError(f"{type(self).__name__} is evaluation-only (use --eval-only)")
 
+    def save_model(self, epoch: int, is_best: bool = False) -> None:
+        pass  # nothing trained, nothing to save
+
+    def load_model(self, directory: str, epoch: Optional[int] = None) -> None:
+        if not directory:
+            print("Note that load_model() is skipped as no pretrained model is given")
+
+
+@TRAINER_REGISTRY.register()
 class ZeroshotCLIP2(ZeroshotCLIP):
     """Prompt ensembling over IMAGENET_TEMPLATES_SELECT."""
 
@@ -124,4 +140,5 @@ class ZeroshotCLIP2(ZeroshotCLIP):
         templates = list(IMAGENET_TEMPLATES_SELECT)
         if self.dataset_name != "ImageNet":
             templates.append(CUSTOM_TEMPLATES[self.dataset_name])
+        print(f"Prompt ensembling (n={len(templates)})")
         return templates

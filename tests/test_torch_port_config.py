@@ -126,12 +126,13 @@ def test_merge_semantics():
 
 def test_registries_and_unported_names(tmp_path):
     from rpo_tpu_torch.data.manager import DataManager
-    import rpo_tpu_torch.methods.rpo_trainer  # noqa: F401  registers RPO
+    import rpo_tpu_torch.methods.rpo_trainer  # noqa: F401  the package registers all six
 
-    assert TRAINER_REGISTRY.registered_names() == ["RPO"]
+    assert TRAINER_REGISTRY.registered_names() == [
+        "CoCoOp", "CoOp", "LP", "RPO", "ZeroshotCLIP", "ZeroshotCLIP2"]
     assert DATASET_REGISTRY.registered_names() == ["Synthetic"]
-    with pytest.raises(KeyError, match="Unknown trainer: 'CoOp'"):
-        TRAINER_REGISTRY.get("CoOp")
+    with pytest.raises(KeyError, match="Unknown trainer: 'MaPLe'"):
+        TRAINER_REGISTRY.get("MaPLe")
     cfg = get_cfg_default()
     cfg.merge_from_file(os.path.join(REPO, "configs/datasets/oxford_pets.yaml"))
     with pytest.raises(KeyError, match=r"not ported yet; ported: \['Synthetic'\]"):

@@ -526,3 +526,92 @@ def test_device_train_preprocess_on_gpu_equals_cpu(S, out):
     diff = (u8("cuda") - u8("cpu")).abs()
     assert diff.max().item() <= 1
     assert int((diff > 0).sum()) <= 1e-3 * diff.numel()
+
+
+def _gpu_baseline(name, **kw):
+    """A baseline trainer at TINY_W128 on the card (6 classes), bf16 unless
+    ``prec`` says otherwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.methods.cocoop import CoCoOp
+    from rpo_tpu_torch.methods.coop import CoOp
+    from rpo_tpu_torch.methods.linear_probe import LP
+
+    cls = {"CoOp": CoOp, "CoCoOp": CoCoOp, "LP": LP}[name]
+    kw.setdefault("prec", "fp16")
+    return cls([f"object category {i}" for i in range(6)], backbone="TINY_W128", seed=1, **kw)
+
+
+def _baseline_batches(n, B, seed=7):
+    rng = np.random.RandomState(seed)
+    return [{"img": rng.randint(0, 256, (B, 32, 32, 3)).astype(np.uint8),
+             "label": rng.randint(0, 6, B),
+             "mask": np.array([1.0] * max(B - 1, 1) + [0.0] * min(B - 1, 1), np.float32)}
+            for _ in range(n)]
+
+
+def _tree_np(tree):
+    return {k: _tree_np(v) if isinstance(v, dict) else v.detach().cpu().numpy().copy()
+            for k, v in tree.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,batch", [("CoOp", 4), ("CoCoOp", 1), ("CoCoOp", 16), ("LP", 4)])
+def test_baseline_graph_replays_equal_eager_steps_on_gpu(name, batch):
+    """Three eager steps and three replays of the captured one-step graph
+    from the same state (the first trainable tensors, a fresh optimizer):
+    the same losses and trainable tensors (torch.equal).  The capture
+    records the step's kernels: the rect kernel once a vision layer, the
+    masked kernel once a text layer a text tower (CoOp: one; CoCoOp: one
+    below batch 16, one a chunk of 8 from 16 on; LP: none)."""
+    from rpo_tpu_torch.engine import optim
+    from rpo_tpu_torch.methods.step_graph import batch_spec
+
+    trainer = _gpu_baseline(name)
+    batches = _baseline_batches(3, batch)
+    first = _tree_np(trainer.params)
+    eager = torch.stack([trainer.train_step(b["img"], b["label"], b["mask"], 0.01)[0]
+                         for b in batches])
+    eager_params = [t.clone() for t in optim.tree_leaves(trainer.params)]
+    trainer.set_ckpt_state(trainer.model_name, first)  # in place: a fresh optimizer
+    trainer.current_lr = 0.01
+    replays = torch.stack([trainer.forward_backward(b)["loss"] for b in batches])
+    graph = trainer._graphs[(1, batch_spec(batches[0]))]
+    assert graph.replays == 3
+    assert torch.equal(replays, eager), (replays, eager)
+    assert all(map(torch.equal, optim.tree_leaves(trainer.params), eager_params))
+    cfg = trainer.clip_cfg
+    towers = {"CoOp": 1, "CoCoOp": 2 if batch >= 16 else 1, "LP": 0}[name]
+    assert graph.launches_per_replay["rect_attention.launches"] == cfg.vision_layers
+    assert graph.launches_per_replay["masked_attention.launches"] == cfg.text_layers * towers
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["fp32", "fp16"])
+def test_cocoop_accumulation_equals_monolithic_on_gpu(prec):
+    """CoCoOp at batch 16 with two padded rows on the card: the accumulated
+    step (the image tower once, the text towers in two chunks of 8)
+    against the monolithic step on the same batch.  float32: loss within
+    1e-5, logits within 1e-4, each gradient within 1e-5 + 1e-4 x its
+    largest entry (reassociation only); bf16: chip_smoke's train bounds
+    (loss 0.1, logits 5e-2, each gradient within 0.1 of its largest entry,
+    cosine >= 0.99)."""
+    from rpo_tpu_torch.engine import optim
+
+    trainer = _gpu_baseline("CoCoOp", prec=prec)
+    b = _baseline_batches(1, 16, seed=3)[0]
+    b["mask"][-2:] = 0.0
+    loss, logits, grads = trainer.loss_and_grads_of("accumulated", b["img"], b["label"],
+                                                   b["mask"])
+    m_loss, m_logits, m_grads = trainer.loss_and_grads_of("monolithic", b["img"], b["label"],
+                                                         b["mask"])
+    f32 = prec == "fp32"
+    assert abs(loss.item() - m_loss.item()) <= (1e-5 if f32 else 0.1)
+    assert (logits - m_logits).abs().max().item() <= (1e-4 if f32 else 5e-2)
+    for g, w in zip(optim.tree_leaves(grads), optim.tree_leaves(m_grads)):
+        err, big = (g - w).abs().max().item(), w.abs().max().item()
+        if f32:
+            assert err <= 1e-5 + 1e-4 * big, (err, big)
+        else:
+            cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
+            assert err <= 0.1 * big and cos >= 0.99, (err, big, cos)
