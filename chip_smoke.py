@@ -128,6 +128,22 @@ Phases, one line each (any failure exits non-zero):
               monolithic one; then ZeroshotCLIP and ZeroshotCLIP2
               --eval-only on the new classes (12 and 96 masked launches);
               each run's train images/s over epoch 2.
+ 14. ResNet  the ModifiedResNet towers: ZeroshotCLIP in process on a
+              random seed-1 RN50 and RN101 (three batches of 100 at 224)
+              and RN50x4 and RN50x16 (one batch at 288 and 384), in bf16
+              after a warm-up batch: 12 masked launches for the text
+              set-up, no rect one; logits against the plain masked
+              attention (5e-2, argmax 97%), each image's features against
+              an f32 witness (cosine >= 0.99), images/s, a profile of RN50
+              and RN101 (cuDNN convs, BN, pooling, the attention pool in a
+              labelled range); CoOp's rn50_ep50 through the CLI as phase
+              13's CoOp run (batch 32, 16 shots: 12 masked and no rect
+              kernel a step, the replay against the eager step, the
+              eval-only reload, epoch 1 against the plain versions, engine
+              images/s); ZeroshotCLIP --eval-only on RN101 (rn101.yaml) and
+              ZeroshotCLIP2 on an RN50 loaded through $CLIP_CHECKPOINT from
+              a random OpenAI-layout fp16 state dict the script writes,
+              whose tree must equal convert_state_dict's of that dict.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
 from seed 1 and shared by the methods of phases 4-10.  Imports nothing
@@ -370,15 +386,38 @@ def text_block(gen, d: int) -> dict:
     }
 
 
+def kernel_group(name: str) -> str:
+    """The group of a device operation, by its kernel's name."""
+    n = name.lower()
+    return ("fused_text_layer kernel" if "fused_text_layer" in n
+            else "fused_rect_attn_half kernel" if "fused_rect_attn_half" in n
+            else "fused_mlp_half kernel" if "fused_mlp_half" in n
+            else "masked_attention kernel" if "attention_kernel" in n and "true" in n
+            else "rect_attention kernel" if "attention_kernel" in n
+            else "conv (cuDNN)" if any(w in n for w in ("fprop", "implicit_gemm", "cudnn",
+                                                        "winograd", "conv2d", "convolve"))
+            else "batch_norm" if "batch_norm" in n or "bn_fw" in n
+            else "pooling" if "pool" in n
+            else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90"))
+            else "layer_norm" if "layer_norm" in n
+            else "softmax/reduce" if any(w in n for w in ("softmax", "reduce"))
+            else "copy/cast" if any(w in n for w in ("copy", "memcpy", "cat", "nchwtonhwc",
+                                                     "nhwctonchw"))
+            else "elementwise" if "elementwise" in n
+            else "other")
+
+
 def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batch",
-                      before=None):
+                      before=None, ranges=()):
     """One more eval batch (or train step, ``what``) under torch.profiler:
     device time by kernel group, the device's idle share of its wall time
     and the count of device operations.  ``before`` runs after the warm-up,
-    just before the profiled step.  A window with no device time is taken
-    again, up to three times (``before`` before each).  Returns the device
-    operations the profiler saw, by group (empty where it saw no device
-    time), and the device's busy milliseconds (0 there)."""
+    just before the profiled step.  ``ranges`` names labelled ranges
+    (``record_function``) whose device time is printed beside the groups.
+    A window with no device time is taken again, up to three times
+    (``before`` before each).  Returns the device operations the profiler
+    saw, by group (empty where it saw no device time), and the device's
+    busy milliseconds (0 there)."""
     from torch.profiler import ProfilerActivity, profile
 
     step(images)  # warm
@@ -391,25 +430,18 @@ def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batc
             step(images)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
-        groups, counts = {}, {}
+        groups, counts, in_range = {}, {}, {}
         for evt in prof.key_averages():
+            if evt.key in ranges:
+                # a range shows as the CPU op, whose device time is its
+                # kernels', and as a span on the device's timeline (kept out)
+                if evt.device_type == torch.autograd.DeviceType.CPU:
+                    in_range[evt.key] = getattr(evt, "device_time_total", 0)
+                continue
             if evt.device_type != torch.autograd.DeviceType.CUDA:
                 continue
-            us = evt.self_device_time_total
-            n = evt.key.lower()
-            group = ("fused_text_layer kernel" if "fused_text_layer" in n
-                     else "fused_rect_attn_half kernel" if "fused_rect_attn_half" in n
-                     else "fused_mlp_half kernel" if "fused_mlp_half" in n
-                     else "masked_attention kernel" if "attention_kernel" in n and "true" in n
-                     else "rect_attention kernel" if "attention_kernel" in n
-                     else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet",
-                                                           "sm90"))
-                     else "layer_norm" if "layer_norm" in n
-                     else "softmax/reduce" if any(w in n for w in ("softmax", "reduce"))
-                     else "copy/cast" if any(w in n for w in ("copy", "memcpy", "cat"))
-                     else "elementwise" if "elementwise" in n
-                     else "other")
-            groups[group] = groups.get(group, 0.0) + us
+            group = kernel_group(evt.key)
+            groups[group] = groups.get(group, 0.0) + evt.self_device_time_total
             counts[group] = counts.get(group, 0) + evt.count
         if sum(groups.values()) > 0:
             break
@@ -419,9 +451,11 @@ def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batc
         return {}, 0.0
     parts = ", ".join(f"{g} {us / 1e3:.2f} ms ({us / busy:.1%})"
                       for g, us in sorted(groups.items(), key=lambda kv: -kv[1]))
+    labelled = "".join(f"; {name} (labelled range) {in_range.get(name, 0) / 1e3:.2f} ms "
+                       f"({in_range.get(name, 0) / busy:.1%})" for name in ranges)
     print(f"profile {label} {what} on {smi}: wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share {max(0.0, 1 - busy / wall_us):.1%}, {n_ops} device "
-          f"operations (kernels and copies); {parts}", flush=True)
+          f"operations (kernels and copies); {parts}{labelled}", flush=True)
     return counts, busy / 1e3
 
 
@@ -1456,6 +1490,233 @@ def baseline_runs(out: str, smi: str, n_layers: int, text_layers: int) -> dict:
     return {"launches": launches, "rates": rates}
 
 
+# Phase 14: (backbone, resolution, eval batches of 100) of ZeroshotCLIP in process
+RN_EVALS = (("RN50", 224, N_BATCHES), ("RN101", 224, N_BATCHES), ("RN50x4", 288, 1),
+            ("RN50x16", 384, 1))
+RN_WITNESS_COS = 0.99  # bf16 image features against an f32 witness, per image
+RN_COOP_CONFIG = "configs/trainers/CoOp/rn50_ep50.yaml"
+RN_ZERO_SHOT = (("ZeroshotCLIP RN101", "ZeroshotCLIP", "configs/trainers/CoOp/rn101.yaml", False),
+                ("ZeroshotCLIP2 RN50 from a checkpoint", "ZeroshotCLIP2",
+                 "configs/trainers/CoOp/rn50.yaml", True))
+
+
+def random_openai_state_dict(cfg, seed: int, dtype=np.float16) -> dict:
+    """A random CLIP state dict in OpenAI's layout and dtype (fp16), made
+    with numpy: weights ~ N(0, 1/fan_in), embeddings ~ N(0, 0.02),
+    LayerNorm and BN scales ~ 1 +- 0.2, biases and BN means ~ 0 +- 0.1,
+    BN variances in [0.5, 2), and OpenAI's three integer entries."""
+    from rpo_tpu_torch.models.clip.convert import state_dict_shapes
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key, shape in state_dict_shapes(cfg).items():
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.tensor(0)
+            continue
+        if key.endswith("running_var"):
+            a = rng.uniform(0.5, 2.0, shape)
+        elif key == "logit_scale":
+            a = np.array(np.log(1 / 0.07))
+        elif key.endswith(("bias", "running_mean")):
+            a = 0.1 * rng.randn(*shape)
+        elif len(shape) == 1:
+            a = 1 + 0.2 * rng.randn(*shape)
+        elif "embedding" in key:
+            a = 0.02 * rng.randn(*shape)
+        else:
+            a = rng.randn(*shape) / math.sqrt(int(np.prod(shape[1:])))
+        sd[key] = torch.from_numpy(a.astype(dtype))
+    for key, value in (("input_resolution", cfg.image_resolution),
+                       ("context_length", cfg.context_length), ("vocab_size", cfg.vocab_size)):
+        sd[key] = torch.tensor(value)
+    return sd
+
+
+def tree_pairs(a, b, path=""):
+    """(path, a's leaf, b's leaf) over two trees of dicts and lists, which
+    must have the same structure."""
+    if isinstance(b, dict):
+        if not isinstance(a, dict) or set(a) != set(b):
+            fail(f"tree structure differs at {path or 'the root'}")
+        for k in b:
+            yield from tree_pairs(a[k], b[k], f"{path}.{k}" if path else k)
+    elif isinstance(b, list):
+        if not isinstance(a, list) or len(a) != len(b):
+            fail(f"tree structure differs at {path}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from tree_pairs(x, y, f"{path}[{i}]")
+    else:
+        yield path, a, b
+
+
+def rn_eval(name: str, size: int, n_batches: int, classnames, smi: str, profile: bool,
+            device: str = "cuda"):
+    """ZeroshotCLIP (Caltech101's template) on a random seed-1 ``name`` in
+    bf16 over ``n_batches`` batches of 100 uint8 ``size`` x ``size`` images:
+    12 masked launches for the text features and no rect one; the logits
+    against the same path with the plain masked attention (5e-2, argmax
+    97%); each image's features against an f32 witness of the same weights
+    (cosine >= RN_WITNESS_COS); images/s after one warm-up batch (which a
+    rate of one batch would otherwise hold); with ``profile``, one more batch
+    under torch.profiler with the attention pool in a labelled range.
+    Returns (the set-up's masked launches, images/s at the median batch).
+    ``device`` is the card, or the CPU for a rehearsal at a test size."""
+    from rpo_tpu_torch.data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, \
+        device_normalize_fn
+    from rpo_tpu_torch.methods import zsclip
+    from rpo_tpu_torch.models.clip import resnet as rn
+    from rpo_tpu_torch.models.clip.model import ARCHS, encode_image, init_clip
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    cfg = ARCHS[name]
+    if cfg.image_resolution != size:
+        fail(f"{name}: resolution {cfg.image_resolution}, expected {size}")
+    rng = np.random.RandomState(14)
+    batches = [rng.randint(0, 256, (EVAL_BATCH, size, size, 3)).astype(np.uint8)
+               for _ in range(n_batches)]
+    clip32 = init_clip(torch.Generator(device=device).manual_seed(1), cfg)
+    ra.launches = ma.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zs = zsclip.ZeroshotCLIP(classnames, "Caltech101", backbone=name, seed=1, device=device,
+                             clip_params=clip32)
+    zs.text_features()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup = check_launches(f"ZeroshotCLIP {name} set-up", ma, cfg.text_layers)
+    zs.eval_step(batches[0])  # warm-up: cuDNN's first call at a shape picks its kernels
+    torch.cuda.synchronize()
+    logits, batch_s = run_batches(zs.eval_step, batches)
+    check_launches(f"ZeroshotCLIP {name} eval", ra, 0)
+    check_launches(f"ZeroshotCLIP {name} eval", ma, cfg.text_layers)
+    plain = [plain_eval_logits(zs, images) for images in batches]
+    check_logits(f"slice ZeroshotCLIP {name} bf16 {size}x{size} n_cls={len(classnames)}", logits,
+                 plain, SINGLE_PAIR_ARGMAX_AGREE, against="the plain masked attention")
+    witness = {**clip32, "visual": rn.conv_layout(clip32["visual"])}
+    normalize32 = device_normalize_fn(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, dtype=torch.float32)
+    cos, err, big = [], 0.0, 0.0
+    with torch.no_grad():
+        for images in batches:
+            x = torch.from_numpy(images).to(device)
+            got = encode_image(zs.clip_params, cfg, zs._normalize(x)).float()
+            want = encode_image(witness, cfg, normalize32(x))
+            cos.append(F.cosine_similarity(got.double(), want.double(), dim=-1))
+            err = max(err, (got - want).abs().max().item())
+            big = max(big, want.abs().max().item())
+    cos = torch.cat(cos)
+    ok = cos.min().item() >= RN_WITNESS_COS and bool(torch.isfinite(cos).all())
+    print(f"ZeroshotCLIP {name} image features (bf16) against an f32 witness of the same weights "
+          f"(TF32 off), {cos.numel()} images: cosine min {cos.min().item():.6f}, median "
+          f"{cos.median().item():.6f} (>= {RN_WITNESS_COS}); max_abs_err {err:.3e} of max "
+          f"|feature| {big:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"ZeroshotCLIP {name}: image features disagree with the f32 witness")
+    rate = report_rate(f"ZeroshotCLIP {name} ({size}x{size})", setup_s, batch_s, smi)
+    if profile:
+        pool = rn.attention_pool
+
+        def labelled(*args):
+            with torch.profiler.record_function("attention pool"):
+                return pool(*args)
+
+        rn.attention_pool = labelled
+        try:
+            profile_eval_step(zs.eval_step, batches[-1], smi, f"ZeroshotCLIP {name}",
+                              ranges=("attention pool",))
+        finally:
+            rn.attention_pool = pool
+    return setup, rate
+
+
+def resnet_runs(out: str, smi: str, classnames, device: str = "cuda") -> dict:
+    """Phase 14: the ModifiedResNet towers.  ZeroshotCLIP in process on
+    RN50, RN101 (three batches each), RN50x4 and RN50x16 (one); CoOp's
+    rn50_ep50 through the CLI as phase 13's CoOp run (the replay against
+    the eager step, an eval-only reload, epoch 1 against the plain
+    versions); ZeroshotCLIP --eval-only on RN101 and ZeroshotCLIP2 on RN50
+    loaded from a random OpenAI-layout fp16 checkpoint, whose tree must
+    equal ``convert_state_dict``'s of the same dict.  Returns the masked
+    launches and replays by path and the rates.  ``device`` as in
+    ``rn_eval``."""
+    from rpo_tpu_torch.models.clip.convert import convert_state_dict
+    from rpo_tpu_torch.models.clip.model import ARCHS, cast_params
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    if torch.backends.cudnn.benchmark:
+        fail("cuDNN benchmark mode is on: a capture may pick other algorithms than the eager step")
+    masked, replayed, rates = {}, {}, {}
+    for name, size, n_batches in RN_EVALS:
+        setup, rates[f"ZeroshotCLIP {name}"] = rn_eval(name, size, n_batches, classnames, smi,
+                                                       n_batches > 1, device)
+        masked[f"ZeroshotCLIP {name} set-up"] = setup
+    rn50 = ARCHS[RN_EVALS[0][0]]
+    text_layers = rn50.text_layers
+
+    label = "CoOp RN50 run"
+    sub = os.path.join(out, "coop_rn50")
+    argv = baseline_argv(os.path.join(sub, "train"), "CoOp", RN_COOP_CONFIG, [
+        "DATASET.NUM_SHOTS", str(RUN_SHOTS), "OPTIM.MAX_EPOCH", str(RUN_EPOCHS)])
+    expect = {"model": "prompt_learner", "step": (0, text_layers), "eval": (0, 0),
+              "setup_masked": text_layers}
+    trainer, log, losses, rate, accuracy, made, graph_replayed, first = cli_train(
+        argv, smi, label, expect)
+    masked[label], replayed[label], rates[label] = ma.launches, graph_replayed["masked"], rate
+    if ra.launches:
+        fail(f"{label} launched the rect kernel {ra.launches} times")
+    replay_equals_eager(label, trainer, first)
+    profile_backward_share(label, trainer, made[0], smi)
+    output_dir = trainer.output_dir
+    del trainer
+    evaluator, counts, _ = baseline_eval_only(os.path.join(sub, "eval"), label, argv, expect,
+                                              accuracy, output_dir)
+    masked[f"{label}, eval-only"] = counts[1]
+    baseline_plain_epoch(label, evaluator, losses)
+    del evaluator
+
+    for label, trainer_name, config, from_checkpoint in RN_ZERO_SHOT:
+        sub = os.path.join(out, trainer_name + ("_ckpt" if from_checkpoint else ""))
+        os.makedirs(sub)
+        argv = baseline_argv(os.path.join(sub, "run"), trainer_name, config,
+                             ["DATASET.SUBSAMPLE_CLASSES", "new"])
+        n_templates = 8 if trainer_name == "ZeroshotCLIP2" else 1
+        expect = {"eval": (0, 0), "setup_masked": text_layers * n_templates}
+        sd, path = None, os.path.join(sub, "RN50.pt")
+        if from_checkpoint:
+            sd = random_openai_state_dict(rn50, seed=1)
+            torch.save(sd, path)
+            os.environ["CLIP_CHECKPOINT"] = path
+        try:
+            evaluator, counts, found = baseline_eval_only(os.path.join(sub, "run"), label, argv,
+                                                          expect)
+        finally:
+            os.environ.pop("CLIP_CHECKPOINT", None)
+        masked[f"{label}, eval-only"] = counts[1]
+        with open(os.path.join(sub, "run", "log.txt")) as f:
+            run_log = f.read()
+        if from_checkpoint:
+            want = cast_params(convert_state_dict(sd, device=device), torch.bfloat16)
+            pairs = list(tree_pairs(evaluator.clip_params, want))
+            differ = [p for p, a, b in pairs if a.dtype != b.dtype or not torch.equal(a, b)]
+            ok = not differ and evaluator.clip_cfg == rn50 and \
+                f"Loading CLIP (backbone: RN50) from {path}" in run_log
+            print(f"{label}: the CLI's tree against convert_state_dict of the same fp16 state dict "
+                  f"(cast to bf16): {len(pairs)} leaves, {len(differ)} differ {differ[:3]}; config "
+                  f"inferred = RN50's {evaluator.clip_cfg == rn50}; loaded from "
+                  f"$CLIP_CHECKPOINT {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"{label}: the loaded backbone is not the checkpoint's")
+        elif "RANDOM weights" not in run_log:
+            fail(f"{label}: expected the seed-1 random backbone")
+        print(f"{label} eval-only (CLI, {config}, Synthetic's {len(evaluator.dm.classnames)} new "
+              f"classes, {n_templates} template(s)): accuracy {found}", flush=True)
+        del evaluator
+    print(f"ResNet on {smi}: " + ", ".join(f"{k} {v:.1f} images/s" for k, v in rates.items()),
+          flush=True)
+    return {"masked": masked, "masked_replayed": replayed, "rates": rates}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -2322,9 +2583,16 @@ def main() -> int:
         rect_replayed.update(baselines["launches"]["rect_replayed"])
         masked_replayed = baselines["launches"]["masked_replayed"]
         print(f"chip_smoke: phase 13 in {time.perf_counter() - t13:.1f} s", flush=True)
+
+        # ---- 14. the ResNet towers: zero-shot, CoOp's RN protocol, a checkpoint --
+        t14 = time.perf_counter()
+        resnet = resnet_runs(os.path.join(run_dir, "resnet"), smi, classnames)
+        masked_launches.update(resnet["masked"])
+        masked_replayed.update(resnet["masked_replayed"])
+        print(f"chip_smoke: phase 14 in {time.perf_counter() - t14:.1f} s", flush=True)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    print(f"chip_smoke: phases 1-13 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",

@@ -45,8 +45,9 @@ from ..data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
 from ..device import DeviceLike, resolve_device
 from ..engine import optim
 from ..engine.trainer import TrainerBase, _load_checkpoint_file
-from ..models.clip.model import ARCHS, cast_params
+from ..models.clip.model import ARCHS, CLIPConfig, cast_params
 from ..models.clip.pretrained import load_backbone
+from ..models.clip.resnet import conv_layout
 from ..ops.attention import Attention, MaskedAttention
 from ..ops.masked_attention import masked_attention
 from ..ops.preprocess import _mean_std_u8, device_eval_preprocess, device_train_preprocess
@@ -133,6 +134,7 @@ class CLIPMethodTrainer(TrainerBase):
         seed: int = 1,
         device: DeviceLike = None,
         clip_params: Optional[dict] = None,
+        clip_cfg: Optional[CLIPConfig] = None,
         momentum: float = 0.9,
         weight_decay: float = 5e-4,
         nesterov: bool = False,
@@ -142,9 +144,12 @@ class CLIPMethodTrainer(TrainerBase):
         pixel_std=CLIP_PIXEL_STD,
         device_resize: int = 0,
     ):
-        """``clip_params`` (a nested dict of tensors on ``device``) replaces
-        the random backbone, which is drawn from ``seed`` otherwise
-        (``load_backbone``): no CLIP checkpoint ships with the repository.
+        """``clip_params`` (a nested dict of tensors on ``device``, with
+        ``clip_cfg``, its architecture: ``ARCHS[backbone]`` where None)
+        replaces the backbone that ``load_backbone`` resolves otherwise: a
+        checkpoint (``$CLIP_CHECKPOINT``, the cache directory), else random
+        weights drawn from ``seed``.  A ModifiedResNet's conv kernels are
+        laid out for the convolution once, here (``resnet.conv_layout``).
         Images are normalised with ``pixel_mean`` and ``pixel_std``
         (INPUT.PIXEL_MEAN/STD; CLIP's, as every method config sets them),
         through ``make_image_prep`` with ``device_resize``
@@ -166,11 +171,14 @@ class CLIPMethodTrainer(TrainerBase):
         self.current_lr: Optional[float] = None
         self.device = resolve_device(device)
         self.seed = max(int(seed), 0)
-        self.clip_cfg = ARCHS[backbone]
         dtype = prec_dtype(prec)
         if clip_params is None:
-            clip_params, _ = load_backbone(backbone, seed=self.seed, device=self.device)
+            clip_params, clip_cfg = load_backbone(backbone, seed=self.seed, device=self.device)
+        self.clip_cfg = ARCHS[backbone] if clip_cfg is None else clip_cfg
         self.clip_params = cast_params(clip_params, dtype)
+        if not self.clip_cfg.is_vit:
+            self.clip_params = {**self.clip_params,
+                                "visual": conv_layout(self.clip_params["visual"])}
         self._normalize = make_image_prep(self.clip_cfg.image_resolution, pixel_mean, pixel_std,
                                           dtype, device_resize)
         self.params = None
@@ -203,27 +211,31 @@ class CLIPMethodTrainer(TrainerBase):
         TRAIN.MICROBATCH, the pixel statistics, INPUT.DEVICE_RESIZE and the
         method's own; then, for a method with trainable tensors,
         MODEL.INIT_WEIGHTS and the model's registration.  ``clip_params``
-        replaces the random backbone; ``device`` None is the CUDA card."""
+        replaces the backbone that ``load_backbone`` resolves (a
+        checkpoint, else random weights); ``device`` None is the CUDA
+        card."""
         cfg = self.cfg
         prec = self.cfg_prec(cfg)
         backbone = cfg.MODEL.BACKBONE.NAME
         if prec == "amp":
             print("PREC 'amp': bf16 compute, no GradScaler (bf16 keeps fp32's exponent "
                   "range; identical to PREC 'fp16')")
-        if backbone not in ARCHS:
-            raise KeyError(f"Unknown backbone {backbone!r}; known: {sorted(ARCHS)}")
-        if int(cfg.INPUT.SIZE[0]) != ARCHS[backbone].image_resolution:
-            raise ValueError(f"cfg_imsize ({cfg.INPUT.SIZE[0]}) must equal to clip_imsize "
-                             f"({ARCHS[backbone].image_resolution})")
         seed = max(int(cfg.SEED), 0)
         device = resolve_device(device)
         print(f"Loading CLIP (backbone: {backbone})")
         if clip_params is None:
-            clip_params, _ = load_backbone(backbone, seed=seed, device=device)
+            clip_params, clip_cfg = load_backbone(backbone, seed=seed, device=device)
+        elif backbone in ARCHS:
+            clip_cfg = ARCHS[backbone]
+        else:
+            raise KeyError(f"Unknown backbone {backbone!r}; known: {sorted(ARCHS)}")
+        if int(cfg.INPUT.SIZE[0]) != clip_cfg.image_resolution:
+            raise ValueError(f"cfg_imsize ({cfg.INPUT.SIZE[0]}) must equal to clip_imsize "
+                             f"({clip_cfg.image_resolution})")
         print("Building custom CLIP")
         type(self).__init__(
             self, **self.method_kwargs(cfg), backbone=backbone, prec=prec, seed=seed,
-            device=device, clip_params=clip_params,
+            device=device, clip_params=clip_params, clip_cfg=clip_cfg,
             momentum=float(cfg.OPTIM.MOMENTUM), weight_decay=float(cfg.OPTIM.WEIGHT_DECAY),
             nesterov=bool(cfg.OPTIM.SGD_NESTEROV), dampening=float(cfg.OPTIM.SGD_DAMPNING),
             microbatch=int(cfg.TRAIN.MICROBATCH), pixel_mean=cfg.INPUT.PIXEL_MEAN,

@@ -27,13 +27,19 @@ def _leaf(a: Any, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
+def _node(node: Any, device):
+    if isinstance(node, Mapping):
+        return {key: _node(leaf, device) for key, leaf in node.items()}
+    if isinstance(node, list):
+        return [_node(leaf, device) for leaf in node]
+    return _leaf(node, device)
+
+
 def params_from_numpy(tree: Mapping[str, Any], device, dtype: Optional[torch.dtype] = None):
-    """Nested dict of arrays -> nested dict of tensors on ``device``.
+    """Nested dict of arrays -> nested dict of tensors on ``device``; a list
+    node (a ResNet tower's ``layers``, lists of block dicts) stays a list.
 
     ``dtype`` casts the floating leaves as ``cast_params`` does (logit_scale
     stays float32); ``None`` keeps each leaf's dtype."""
-    out = {
-        key: params_from_numpy(leaf, device) if isinstance(leaf, Mapping) else _leaf(leaf, device)
-        for key, leaf in tree.items()
-    }
+    out = _node(tree, device)
     return out if dtype is None else cast_params(out, dtype)

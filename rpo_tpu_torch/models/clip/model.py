@@ -18,6 +18,7 @@ from ...ops.attention import NEG_INF, Attention, MaskedAttention
 from ...ops.masked_attention import masked_attention
 from ...ops.rect_attention import rect_attention
 from .layers import TextLayer, layer_norm, transformer
+from .resnet import init_resnet_visual, resnet_encode_image
 
 Params = Dict[str, Any]
 
@@ -95,7 +96,8 @@ TINY = CLIPConfig(
 # tower whose head count is even.
 TINY_W128 = dataclasses.replace(TINY, vision_width=128)
 
-# Test-size ModifiedResNet (its towers are not ported yet).
+# Test-size ModifiedResNet: one bottleneck per stage, width 16 (8
+# attention-pool heads, a 512-wide feature, embed 64).
 TINY_RN = CLIPConfig(
     embed_dim=64,
     image_resolution=32,
@@ -164,12 +166,11 @@ def _init_block_stack(gen: torch.Generator, n_layers: int, width: int, dtype) ->
 
 
 def init_clip(gen: torch.Generator, cfg: CLIPConfig, dtype=torch.float32) -> Params:
-    """Random ViT CLIP params with the CLIP init distributions, drawn from
-    ``gen`` on ``gen.device``.  The numbers differ from the JAX package's
-    for the same seed; tests carry the JAX weights across with
-    ``bridge.params_from_numpy`` instead."""
-    if not cfg.is_vit:
-        raise NotImplementedError("ResNet towers are not ported yet")
+    """Random CLIP params with the CLIP init distributions, drawn from
+    ``gen`` on ``gen.device``: a ViT or, for a tuple of ``vision_layers``,
+    a ModifiedResNet visual tower (``resnet.init_resnet_visual``).  The
+    numbers differ from the JAX package's for the same seed; tests carry
+    the JAX weights across with ``bridge.params_from_numpy`` instead."""
     vw, tw = cfg.vision_width, cfg.text_width
     scale = vw ** -0.5
     dev = gen.device
@@ -180,16 +181,19 @@ def init_clip(gen: torch.Generator, cfg: CLIPConfig, dtype=torch.float32) -> Par
             "bias": torch.zeros(width, dtype=dtype, device=dev),
         }
 
-    visual = {
-        # patch embedding stored matmul-ready: (P*P*3, width)
-        "patch_embed": _normal(gen, (cfg.vision_patch_size ** 2 * 3, vw), scale, dtype),
-        "class_embedding": _normal(gen, (vw,), scale, dtype),
-        "positional_embedding": _normal(gen, (cfg.vision_seq_len, vw), scale, dtype),
-        "ln_pre": ln(vw),
-        "blocks": _init_block_stack(gen, cfg.vision_layers, vw, dtype),
-        "ln_post": ln(vw),
-        "proj": _normal(gen, (vw, cfg.embed_dim), scale, dtype),
-    }
+    if cfg.is_vit:
+        visual = {
+            # patch embedding stored matmul-ready: (P*P*3, width)
+            "patch_embed": _normal(gen, (cfg.vision_patch_size ** 2 * 3, vw), scale, dtype),
+            "class_embedding": _normal(gen, (vw,), scale, dtype),
+            "positional_embedding": _normal(gen, (cfg.vision_seq_len, vw), scale, dtype),
+            "ln_pre": ln(vw),
+            "blocks": _init_block_stack(gen, cfg.vision_layers, vw, dtype),
+            "ln_post": ln(vw),
+            "proj": _normal(gen, (vw, cfg.embed_dim), scale, dtype),
+        }
+    else:
+        visual = init_resnet_visual(gen, cfg, dtype)
     text = {
         "token_embedding": _normal(gen, (cfg.vocab_size, tw), 0.02, dtype),
         "positional_embedding": _normal(gen, (cfg.context_length, tw), 0.01, dtype),
@@ -206,16 +210,18 @@ def init_clip(gen: torch.Generator, cfg: CLIPConfig, dtype=torch.float32) -> Par
 
 def cast_params(params: Params, dtype) -> Params:
     """Cast floating leaves to ``dtype``; logit_scale stays float32
-    (it is the only trained backbone scalar and exp() of bf16 drifts)."""
-    out = {}
-    for key, leaf in params.items():
+    (it is the only trained backbone scalar and exp() of bf16 drifts).
+    Walks dicts and lists (a ResNet tower's ``layers``)."""
+    def cast(key, leaf):
         if isinstance(leaf, dict):
-            out[key] = cast_params(leaf, dtype)
-        elif key == "logit_scale" or not leaf.is_floating_point():
-            out[key] = leaf
-        else:
-            out[key] = leaf.to(dtype)
-    return out
+            return {k: cast(k, v) for k, v in leaf.items()}
+        if isinstance(leaf, list):
+            return [cast(key, v) for v in leaf]
+        if key == "logit_scale" or not leaf.is_floating_point():
+            return leaf
+        return leaf.to(dtype)
+
+    return cast(None, params)
 
 
 # ---------------------------------------------------------------------------
@@ -278,10 +284,11 @@ def encode_image(
     rect_attn: Attention = rect_attention,
     masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
-    """Standard CLIP image features (B, embed_dim): the ViT CLS head.  The
-    unmasked tower's attention is the rect kernel with Lq = Lk."""
+    """Standard CLIP image features (B, embed_dim): the ViT CLS head, or
+    the ModifiedResNet's attention pool, which calls no attention kernel.
+    The unmasked ViT tower's attention is the rect kernel with Lq = Lk."""
     if not cfg.is_vit:
-        raise NotImplementedError("ResNet towers are not ported yet")
+        return resnet_encode_image(params, cfg, images)
     v = params["visual"]
     x = vision_embed(v, cfg, images)
     x = vision_transformer_run(v, cfg, x, None, rect_attn, masked_attn)

@@ -148,14 +148,18 @@ def _rpo_cfg(tmp_path, *opts):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """A CLIP checkpoint and a ResNet backbone for RPO each raise at build;
-    none carries on.  INPUT.DEVICE_RESIZE, ported since, builds: its eval
+    """A ResNet backbone for RPO and a missing $CLIP_CHECKPOINT each raise
+    at build; neither carries on (an existing checkpoint is loaded, its
+    config inferred from its shapes).  INPUT.DEVICE_RESIZE, ported since, builds: its eval
     sources (S, S) and its train batches' {img, box, flip} take the
     device-resize routes of the trainer's image prep, and a non-bicubic
     interpolation with it raises."""
+    from rpo_tpu.models.clip import pretrained as jpretrained
     from rpo_tpu_torch.engine import build_trainer
+    from rpo_tpu_torch.models.clip import convert as tconvert
     import rpo_tpu_torch.methods.rpo_trainer  # noqa: F401
 
+    monkeypatch.delenv("RPO_TPU_ALLOW_DOWNLOAD", raising=False)
     trainer = build_trainer(_rpo_cfg(tmp_path, "INPUT.DEVICE_RESIZE", "64"), device="cpu")
     assert trainer.dm.train_loader_x.transform.device_resize == 64
     src = torch.zeros((2, 64, 64, 3), dtype=torch.uint8)
@@ -168,9 +172,23 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
                                "bilinear"), device="cpu")
     with pytest.raises(ValueError, match="requires a ViT backbone"):
         build_trainer(_rpo_cfg(tmp_path, "MODEL.BACKBONE.NAME", "TINY_RN"), device="cpu")
-    monkeypatch.setenv("CLIP_CHECKPOINT", str(tmp_path / "ViT-B-16.pt"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    # a missing $CLIP_CHECKPOINT raises JAX's FileNotFoundError, never
+    # falling through to other weights; an existing one is loaded
+    missing = str(tmp_path / "ViT-B-16.pt")
+    monkeypatch.setenv("CLIP_CHECKPOINT", missing)
+    with pytest.raises(FileNotFoundError, match="does not exist"):
         build_trainer(_rpo_cfg(tmp_path), device="cpu")
+    with pytest.raises(FileNotFoundError, match="does not exist"):
+        jpretrained.find_checkpoint("ViT-B/16")
+    from tests.test_torch_port_convert import save_checkpoint
+
+    save_checkpoint(missing, "TINY", seed=5)
+    trainer = build_trainer(_rpo_cfg(tmp_path), device="cpu")
+    want, _ = tconvert.load_clip(missing, device="cpu")
+    assert torch.equal(trainer.clip_params["visual"]["patch_embed"],
+                       want["visual"]["patch_embed"])
+    assert trainer.clip_cfg.text_heads == 1  # inferred from the file: 64 // 64
+    monkeypatch.delenv("CLIP_CHECKPOINT")
     with pytest.raises(ValueError, match="clip_imsize"):
         build_trainer(_rpo_cfg(tmp_path, "INPUT.SIZE", "(224, 224)"), device="cpu")
 

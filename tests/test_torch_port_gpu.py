@@ -615,3 +615,92 @@ def test_cocoop_accumulation_equals_monolithic_on_gpu(prec):
         else:
             cos = torch.nn.functional.cosine_similarity(g.flatten(), w.flatten(), dim=0).item()
             assert err <= 0.1 * big and cos >= 0.99, (err, big, cos)
+
+
+def _randomise_bn(tree, gen):
+    """Every BN dict of a ResNet tree redrawn in place from ``gen``: scale
+    ~ 1 +- 0.2, bias and mean ~ 0 +- 0.1, var in [0.5, 2)."""
+    if isinstance(tree, list):
+        for node in tree:
+            _randomise_bn(node, gen)
+    elif isinstance(tree, dict):
+        if set(tree) == {"scale", "bias", "mean", "var"}:
+            c = tree["scale"].shape
+            tree["scale"] = 1 + 0.2 * torch.randn(c, generator=gen)
+            tree["bias"] = 0.1 * torch.randn(c, generator=gen)
+            tree["mean"] = 0.1 * torch.randn(c, generator=gen)
+            tree["var"] = 0.5 + 1.5 * torch.rand(c, generator=gen)
+        else:
+            for node in tree.values():
+                _randomise_bn(node, gen)
+
+
+@pytest.mark.gpu
+def test_rn50_bf16_tower_on_gpu_matches_the_cpu_port_in_fp32():
+    """RN50's whole image tower (random weights, every BN statistic
+    redrawn) in bf16 on the card, its kernels laid out once, against the
+    same weights in float32 through the port on the CPU: per-image cosine
+    >= 0.99 and max |diff| <= 5e-2 x max |feature| (chip_smoke's f32
+    witness bound)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.models.clip.model import ARCHS, cast_params, encode_image
+    from rpo_tpu_torch.models.clip.resnet import conv_layout, init_resnet_visual
+
+    cfg = ARCHS["RN50"]
+    gen = torch.Generator().manual_seed(0)
+    visual = init_resnet_visual(gen, cfg)
+    _randomise_bn(visual, gen)
+    images = torch.randn(4, 224, 224, 3, generator=gen)
+    want = encode_image({"visual": visual}, cfg, images)
+    on_card = cast_params({"visual": visual}, torch.bfloat16)
+    on_card = {"visual": conv_layout({k: _to_cuda(v) for k, v in on_card["visual"].items()})}
+    got = encode_image(on_card, cfg, images.cuda()).float().cpu()
+    cos = torch.nn.functional.cosine_similarity(got.double(), want.double(), dim=-1)
+    err = (got - want).abs().max().item()
+    assert got.shape == want.shape == (4, 1024) and bool(torch.isfinite(got).all())
+    assert cos.min().item() >= 0.99 and err <= 5e-2 * want.abs().max().item(), (cos, err)
+
+
+def _to_cuda(node):
+    if isinstance(node, dict):
+        return {k: _to_cuda(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_to_cuda(v) for v in node]
+    return node.cuda()
+
+
+@pytest.mark.gpu
+def test_coop_rn50_graph_replays_equal_eager_steps_on_gpu():
+    """CoOp on a random RN50 in bf16 (6 classes, batch 4 at 224): three
+    eager steps and three replays of the captured one-step graph from the
+    same state are torch.equal (cuDNN picks the same convolution
+    algorithms in the eager step and in the capture: benchmark mode
+    off); the capture records 12 masked launches (the text tower) and no
+    rect one (the ResNet tower has no transformer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.engine import optim
+    from rpo_tpu_torch.methods.coop import CoOp
+    from rpo_tpu_torch.methods.step_graph import batch_spec
+
+    assert not torch.backends.cudnn.benchmark
+    trainer = CoOp([f"object category {i}" for i in range(6)], backbone="RN50", seed=1,
+                   prec="fp16")
+    rng = np.random.RandomState(7)
+    batches = [{"img": rng.randint(0, 256, (4, 224, 224, 3)).astype(np.uint8),
+                "label": rng.randint(0, 6, 4),
+                "mask": np.array([1.0, 1.0, 1.0, 0.0], np.float32)} for _ in range(3)]
+    first = _tree_np(trainer.params)
+    eager = torch.stack([trainer.train_step(b["img"], b["label"], b["mask"], 0.01)[0]
+                         for b in batches])
+    eager_params = [t.clone() for t in optim.tree_leaves(trainer.params)]
+    trainer.set_ckpt_state(trainer.model_name, first)
+    trainer.current_lr = 0.01
+    replays = torch.stack([trainer.forward_backward(b)["loss"] for b in batches])
+    graph = trainer._graphs[(1, batch_spec(batches[0]))]
+    assert graph.replays == 3
+    assert torch.equal(replays, eager), (replays, eager)
+    assert all(map(torch.equal, optim.tree_leaves(trainer.params), eager_params))
+    assert graph.launches_per_replay["rect_attention.launches"] == 0
+    assert graph.launches_per_replay["masked_attention.launches"] == trainer.clip_cfg.text_layers

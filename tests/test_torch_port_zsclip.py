@@ -92,8 +92,21 @@ def test_clip_forward(case):
 
 
 def test_encode_image_refuses_resnet():
-    with pytest.raises(NotImplementedError):
-        tmodel.encode_image({"visual": {}}, TARCHS["TINY_RN"], torch.zeros(1, 32, 32, 3))
+    """The ResNet tower against JAX's: TINY_RN with every BatchNorm
+    statistic redrawn, float32, within 1e-4 of the largest feature
+    (tests/test_torch_port_resnet.py holds the stages, bf16 and full
+    RN50)."""
+    from tests.test_torch_port_resnet import randomise_bn
+
+    tree = randomise_bn(jax.tree_util.tree_map(
+        np.asarray, init_clip(jax.random.PRNGKey(3), ARCHS["TINY_RN"])))
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    tp = params_from_numpy(tree, "cpu")
+    jimgs, timgs = _images("float32", seed=3)
+    want = np.asarray(jmodel.encode_image(jp, ARCHS["TINY_RN"], jimgs))
+    got = tmodel.encode_image(tp, TARCHS["TINY_RN"], timgs)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (3, 64)
+    assert np.abs(got.numpy() - want).max() <= 1e-4 * np.abs(want).max()
 
 
 def _jax_self(jp, arch):
