@@ -7,7 +7,8 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, one line each (any failure exits non-zero):
   1. device   card name, nvidia-smi name and power limit; TF32 and
-              cuBLAS's reduced-precision bf16 reduction off;
+              cuBLAS's reduced-precision bf16 reduction as the package's
+              ``device.resolve_device`` leaves them (off, else it fails);
   2. build    every CUDA source under rpo_tpu_torch/ops/csrc with nvcc;
   3. kernels  each kernel against its plain PyTorch version on the card
               at the main paths' shapes and at the bf16 attention
@@ -144,6 +145,28 @@ Phases, one line each (any failure exits non-zero):
               ZeroshotCLIP2 on an RN50 loaded through $CLIP_CHECKPOINT from
               a random OpenAI-layout fp16 state dict the script writes,
               whose tree must equal convert_state_dict's of that dict.
+ 15. file datasets  (a) one line: whether Pillow imports, whether g++ is
+              there, whether the port's native JPEG library builds and
+              loads, and so which decoder serves; (b) the fifteen
+              file-backed readers on trees in their on-disk layouts
+              (rpo_tpu_torch/tools/fake_datasets.py, image files copied
+              from tests/torch_port_data), under NUM_SHOTS -1 and 16 and
+              SUBSAMPLE_CLASSES all, base and new: train_x, val, test and
+              the classnames against what the tree defines, the few-shot
+              cache, a second build equal (pure Python, whatever (a)
+              found); (c) with a decoder, the CLI: RPO main_K24 on a
+              Caltech101 tree of 10 classes x 40 JPEGs of mixed sizes (16
+              shots of the base classes, two epochs at batch 4, the test
+              split) checked as phase 11 (launches, log contract, losses,
+              an eval-only reload's logits against both plain versions),
+              again with INPUT.DEVICE_RESIZE 224 on a tree of the 224 x
+              224 fixtures (the device augmentation as in phase 12), and
+              ZeroshotCLIP2 --eval-only on an ImageNet tree (10 wnids, 100
+              val images; classnames.txt, preprocessed.pkl, 7 templates:
+              84 masked launches); each run's engine means and images/s
+              beside phase 11's and the batches the native library made.
+              Without a decoder (c) prints one line saying what is missing
+              and which CPU test holds that path.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
 from seed 1 and shared by the methods of phases 4-10.  Imports nothing
@@ -151,6 +174,7 @@ of JAX or rpo_tpu.
 """
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -809,7 +833,7 @@ def cli_train(argv, smi: str, label: str, expect: dict):
     engine_rate = batch_size * n_steps / (stamps[1] - stamps[0])
     config = os.path.relpath(argv[argv.index("--config-file") + 1],
                              os.path.dirname(os.path.abspath(__file__)))
-    print(f"{label} (CLI, {config}, Synthetic {len(trainer.dm.classnames)} classes x "
+    print(f"{label} (CLI, {config}, {cfg.DATASET.NAME} {len(trainer.dm.classnames)} classes x "
           f"{cfg.DATASET.NUM_SHOTS} shots, batch {batch_size}, {RUN_EPOCHS} epochs of {n_steps} "
           f"steps, {cfg.MODEL.BACKBONE.NAME} PREC {trainer.cfg_prec(cfg)}, STEPS_PER_DISPATCH "
           f"{int(cfg.TRAIN.STEPS_PER_DISPATCH)}, DEVICE_RESIZE {int(cfg.INPUT.DEVICE_RESIZE)}): "
@@ -1717,11 +1741,264 @@ def resnet_runs(out: str, smi: str, classnames, device: str = "cuda") -> dict:
     return {"masked": masked, "masked_replayed": replayed, "rates": rates}
 
 
+# Phase 15: the paper's file-backed datasets, on trees whose image files are
+# copies of the committed JPEG fixtures (the machine with the card may have
+# no JPEG encoder).  Every reader under these NUM_SHOTS and SUBSAMPLE_CLASSES:
+READER_SHOTS = (-1, 16)
+READER_SUBSAMPLES = ("all", "base", "new")
+FIXTURE_DIR = os.path.join("tests", "torch_port_data")
+# what the readers write into a tree (split JSON, few-shot cache, ImageNet's items)
+READER_FILES = ("split_zhou_*.json", "split_fewshot", "preprocessed*.pkl")
+# the CLI runs: RPO on a Caltech101 tree of 10 classes x 40 JPEGs (16 shots
+# of the 5 base classes: 20 steps an epoch at batch 4), zero-shot on an
+# ImageNet tree of 10 wnids with 10 val images each
+FILE_RUN_CLASSES, FILE_RUN_PER_CLASS = 10, 40
+IMAGENET_WNIDS, IMAGENET_TRAIN, IMAGENET_VAL = 10, 4, 10
+CALTECH_CONFIG, IMAGENET_CONFIG = "configs/datasets/caltech101.yaml", \
+    "configs/datasets/imagenet.yaml"
+
+
+def decoder_probe() -> dict:
+    """Phase 15 (a): what this machine has to read a JPEG file with, found
+    before anything reads one: Pillow, g++, and the port's native library
+    (built here from ``rpo_tpu_torch/_native``, as the loader would)."""
+    from rpo_tpu_torch import _native
+
+    try:
+        import PIL
+        pillow = PIL.__version__
+    except ImportError:
+        pillow = None
+    gxx = shutil.which("g++")
+    t0 = time.perf_counter()
+    lib = _native.get_lib()
+    build_s = time.perf_counter() - t0
+    why = next((ln.strip() for ln in _native.build_log.splitlines() if "error" in ln),
+               _native.build_log.strip()[:200] or "RPO_TPU_NO_NATIVE=1")
+    native = "builds and loads" if lib is not None else f"unavailable ({why})"
+    decoder = "the native library" if lib is not None else (
+        f"Pillow {pillow}" if pillow else None)
+    print(f"file datasets probe: Pillow {pillow or 'not importable'} | g++ {gxx or 'absent'} | "
+          f"native library {native} ({build_s:.1f} s) | JPEG decoder: "
+          f"{decoder or 'none'}", flush=True)
+    return {"pillow": pillow, "gxx": gxx, "native": lib is not None, "why": why,
+            "decoder": decoder}
+
+
+def reader_files(root: str) -> list:
+    return [p for pattern in READER_FILES for p in glob.glob(os.path.join(root, "*", pattern))]
+
+
+def reader_checks(root: str, sources) -> None:
+    """Phase 15 (b): every file-backed reader on its tree, under each of
+    READER_SHOTS and READER_SUBSAMPLES from a tree without the files the
+    readers write: train_x, val and test counts and the classnames equal
+    what the tree defines (``fake_datasets.expected``), every item's file
+    exists, the few-shot cache is written where shots are drawn, and a
+    second build under another random state gives the same items (the
+    split file and the cache read back).  Pure Python: no image is read."""
+    import random
+
+    from rpo_tpu_torch.engine.config import get_cfg_default
+    from rpo_tpu_torch.engine.registry import DATASET_REGISTRY
+    from rpo_tpu_torch.tools import fake_datasets
+
+    def build(name, tree, shots, subsample, seed):
+        cfg = get_cfg_default()
+        cfg.DATASET.ROOT, cfg.DATASET.NAME, cfg.SEED = tree, name, 1
+        cfg.DATASET.NUM_SHOTS, cfg.DATASET.SUBSAMPLE_CLASSES = shots, subsample
+        random.seed(seed)
+        ds = DATASET_REGISTRY.get(name)(cfg)
+        return ds, {s: [(d.impath, d.label, d.classname) for d in getattr(ds, s)]
+                    for s in ("train_x", "val", "test")}
+
+    t0 = time.perf_counter()
+    for name in sorted(fake_datasets.WRITERS):
+        tree = os.path.join(root, name)
+        layout = fake_datasets.write_tree(name, tree, sources)
+        seen = []
+        for shots in READER_SHOTS:
+            for subsample in READER_SUBSAMPLES:
+                for path in reader_files(tree):
+                    shutil.rmtree(path) if os.path.isdir(path) else os.remove(path)
+                ds, items = build(name, tree, shots, subsample, 1)
+                want = fake_datasets.expected(layout, shots, subsample)
+                got = {s: len(v) for s, v in items.items()}
+                cache = os.path.join(ds.dataset_dir, "split_fewshot", f"shot_{shots}-seed_1.pkl")
+                _, again = build(name, tree, shots, subsample, 2)
+                ok = got == {s: want[s] for s in got} and ds.classnames == want["classnames"] \
+                    and all(os.path.isfile(p) for v in items.values() for p, _, _ in v) \
+                    and (shots < 1 or layout.test_only or os.path.exists(cache)) \
+                    and again == items
+                if not ok:
+                    fail(f"reader {name} (NUM_SHOTS {shots}, {subsample}): train_x, val, test "
+                         f"{got} against the tree's {want}, classnames {ds.classnames}, few-shot "
+                         f"cache {os.path.exists(cache)}, the second build equal {again == items}")
+                seen.append(f"{shots}/{subsample} {got['train_x']}/{got['val']}/{got['test']}")
+        print(f"reader {name}: {len(layout.classnames)} classes, {layout.files} files; (NUM_SHOTS/"
+              f"SUBSAMPLE train_x/val/test) {'; '.join(seen)}; classnames, files, few-shot cache "
+              f"and a second build ok", flush=True)
+    print(f"readers: {len(fake_datasets.WRITERS)} datasets x {len(READER_SHOTS)} NUM_SHOTS x "
+          f"{len(READER_SUBSAMPLES)} SUBSAMPLE_CLASSES in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+class BatchRoutes:
+    """Counts, during a CLI run, the batches the loader made through the
+    native library's batch entry points and those it made otherwise."""
+
+    def __init__(self):
+        from rpo_tpu_torch.data.loader import BatchLoader
+
+        self.cls, self.counts = BatchLoader, {"native": 0, "python": 0}
+        self.saved = {n: getattr(BatchLoader, n) for n in
+                      ("_native_train_batch", "_native_fixed_batch", "_make_batch")}
+
+    def __enter__(self):
+        counts, saved = self.counts, self.saved
+
+        def native(name):
+            def call(loader, *args):
+                imgs = saved[name](loader, *args)
+                loader._native_served = imgs is not None
+                return imgs
+            return call
+
+        def make(loader, *args, **kw):
+            loader._native_served = False
+            batch = saved["_make_batch"](loader, *args, **kw)
+            counts["native" if loader._native_served else "python"] += 1
+            return batch
+
+        for name in ("_native_train_batch", "_native_fixed_batch"):
+            setattr(self.cls, name, native(name))
+        self.cls._make_batch = make
+        return self.counts
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.cls, name, fn)
+
+
+def file_argv(out: str, trainer: str, dataset: str, config: str, root: str, extra=()) -> list:
+    here = os.path.dirname(os.path.abspath(__file__))
+    return ["--seed", "1", "--trainer", trainer,
+            "--dataset-config-file", os.path.join(here, dataset),
+            "--config-file", os.path.join(here, config), "--output-dir", out,
+            "DATASET.ROOT", root, *extra]
+
+
+def file_dataset_runs(out: str, smi: str, probe: dict, sources, phase11: dict, n_layers: int,
+                      text_layers: int) -> dict:
+    """Phase 15 (c): with a JPEG decoder, the CLI on file trees.  RPO
+    main_K24 on a Caltech101 tree (FILE_RUN_CLASSES x FILE_RUN_PER_CLASS of
+    the fixtures, mixed sizes; 16 shots of the base classes, RUN_EPOCHS
+    epochs at batch 4, then the test split), as phase 11 checks it (the
+    launches, the log contract, finite losses, an eval-only reload whose
+    last test batch's logits hold to both plain versions); the same on a
+    tree of the 224 x 224 fixtures with INPUT.DEVICE_RESIZE 224 (the
+    exact-size sources: the native batch decode where it exists, the
+    device augmentation against the host's as phase 12); then
+    ZeroshotCLIP2 --eval-only on an ImageNet tree (classnames.txt,
+    preprocessed.pkl, ImageNet's 7 templates).  Each run's engine means and
+    images/s beside phase 11's, and the batches the native library made.
+    Without a decoder, one line says so.  Returns the launches by path."""
+    from rpo_tpu_torch.methods.templates import IMAGENET_TEMPLATES_SELECT
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.tools import fake_datasets
+
+    launches = {"rect": {}, "masked": {}, "rect_replayed": {}}
+    if probe["decoder"] is None:
+        print(f"file datasets, CLI runs: not run, this machine has no JPEG decoder (Pillow not "
+              f"importable; the native library: {probe['why']}); on the CPU "
+              f"tests/test_torch_port_native.py::test_cli_on_a_caltech101_tree_equals_jax holds "
+              f"this path against the JAX package's", flush=True)
+        return launches
+    caltech = os.path.join(out, "caltech")
+    fake_datasets.write_tree("Caltech101", caltech, sources, n_classes=FILE_RUN_CLASSES,
+                             per_class=FILE_RUN_PER_CLASS)
+    caltech_224 = os.path.join(out, "caltech_224")
+    fake_datasets.write_tree("Caltech101", caltech_224, [p for p in sources if "224x224" in p],
+                             n_classes=FILE_RUN_CLASSES, per_class=FILE_RUN_PER_CLASS)
+    shots = ["DATASET.NUM_SHOTS", str(RUN_SHOTS), "DATASET.SUBSAMPLE_CLASSES", "base",
+             "OPTIM.MAX_EPOCH", str(RUN_EPOCHS)]
+    runs = (("RPO Caltech101 run", caltech, []),
+            ("RPO Caltech101 run, DEVICE_RESIZE 224", caltech_224,
+             ["INPUT.DEVICE_RESIZE", "224"]))
+    for label, root, extra in runs:
+        sub = os.path.join(out, label.replace(", ", "_").replace(" ", "_"))
+        argv = file_argv(os.path.join(sub, "train"), "RPO", CALTECH_CONFIG,
+                         "configs/trainers/RPO/main_K24.yaml", root, shots + extra)
+        with BatchRoutes() as routes:
+            trainer, log, losses, rate, accuracy, made, replayed, _ = cli_train(
+                argv, smi, label, rpo_expect(n_layers, text_layers))
+        launches["rect"][label], launches["masked"][label] = ra.launches, ma.launches
+        launches["rect_replayed"][label] = replayed["rect"]
+        means = re.findall(r"epoch \[(\d)/\d\] batch \[(\d+)/(\d+)\] time [\d.]+ \(([\d.]+)\) "
+                           r"data [\d.]+ \(([\d.]+)\)", log)
+        means = [(e, step, data) for e, b, nb, step, data in means if b == nb]
+        print(f"{label} on {smi}: decoder {probe['decoder']}; loader batches made by the native "
+              f"library {routes['native']}, otherwise {routes['python']}; engine means (epoch, "
+              f"step s, data s) {means}; {rate:.1f} train images/s over epoch 2 against phase "
+              f"11's {phase11['rate']:.1f} on Synthetic", flush=True)
+        if probe["native"] and routes["native"] == 0:
+            fail(f"{label}: the native library loaded, and the loader made no batch with it")
+        if extra:
+            device_resize_check(label, trainer, made)
+        evaluator, (rect, masked) = eval_only_check(sub, label, trainer, argv, accuracy,
+                                                    n_layers, text_layers)
+        launches["rect"][f"{label}, eval-only"] = rect
+        launches["masked"][f"{label}, eval-only"] = masked
+        del trainer, evaluator
+
+    imagenet = os.path.join(out, "imagenet")
+    layout = fake_datasets.write_tree("ImageNet", imagenet, sources, n_classes=IMAGENET_WNIDS,
+                                      train=IMAGENET_TRAIN, val=IMAGENET_VAL)
+    label = "ZeroshotCLIP2 ImageNet"
+    n_templates = len(IMAGENET_TEMPLATES_SELECT)  # ImageNet's ensemble has no custom template
+    argv = file_argv(os.path.join(out, "zs_imagenet"), "ZeroshotCLIP2", IMAGENET_CONFIG,
+                     ZERO_SHOT_CONFIG, imagenet)
+    with BatchRoutes() as routes:
+        evaluator, counts, found = baseline_eval_only(
+            os.path.join(out, "zs_imagenet"), label, argv,
+            {"eval": (n_layers, 0), "setup_masked": text_layers * n_templates})
+    cache = os.path.join(imagenet, "imagenet", "preprocessed.pkl")
+    ok = evaluator.dm.classnames == layout.classnames and os.path.exists(cache) and \
+        len(evaluator.templates) == n_templates and \
+        len(evaluator.dm.dataset.test) == IMAGENET_WNIDS * IMAGENET_VAL
+    print(f"{label} eval-only (CLI, {ZERO_SHOT_CONFIG}, {len(evaluator.dm.classnames)} wnids, "
+          f"{len(evaluator.dm.dataset.test)} val images, {n_templates} templates): accuracy "
+          f"{found}; classnames in sorted-wnid order from classnames.txt, preprocessed.pkl "
+          f"written {os.path.exists(cache)}; loader batches made by the native library "
+          f"{routes['native']}, otherwise {routes['python']} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail(f"{label}: the classnames, the item cache or the templates are not ImageNet's")
+    launches["rect"][f"{label}, eval-only"], launches["masked"][f"{label}, eval-only"] = \
+        counts[:2]
+    del evaluator
+    return launches
+
+
+def file_datasets(out: str, smi: str, phase11: dict, n_layers: int, text_layers: int) -> dict:
+    """Phase 15: the probe (a), the readers (b), the CLI runs (c)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sources = sorted(glob.glob(os.path.join(here, FIXTURE_DIR, "*.jpg")))
+    if len(sources) != 8:
+        fail(f"phase 15 needs the 8 JPEG fixtures under {FIXTURE_DIR}; found {len(sources)}")
+    probe = decoder_probe()
+    reader_checks(os.path.join(out, "readers"), [p for p in sources if "64x64" in p])
+    return file_dataset_runs(os.path.join(out, "runs"), smi, probe, sources, phase11, n_layers,
+                             text_layers)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rpo_tpu_torch.device import resolve_device
     from rpo_tpu_torch.methods import cocoop as cocoop_mod
     from rpo_tpu_torch.methods import coop as coop_mod
     from rpo_tpu_torch.methods import rpo as rpo_core
@@ -1745,9 +2022,11 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    resolve_device()  # the package's settings, as every entry point has them
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    if any(flags):
+        fail(f"resolve_device left a reduced-precision flag on: {flags}")
     bw, peak = next(((b, p) for frag, b, p in PEAKS if frag in name), PEAKS[-1][1:])
     print(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
@@ -2399,7 +2678,7 @@ def main() -> int:
         out, batch_s = run_batches(coop.eval_step, batches * 2)
         rates[flag].append(EVAL_BATCH / statistics.median(batch_s))
         outs[flag] = torch.cat(out)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    resolve_device()  # the package's setting again: off
     moved = (outs[True] - outs[False]).abs().max().item()
     print(f"flag CoOp eval on {smi}, allow_bf16_reduced_precision_reduction off/on/on/off: "
           f"{rates[False][0]:.1f} / {rates[True][0]:.1f} / {rates[True][1]:.1f} / "
@@ -2590,9 +2869,18 @@ def main() -> int:
         masked_launches.update(resnet["masked"])
         masked_replayed.update(resnet["masked_replayed"])
         print(f"chip_smoke: phase 14 in {time.perf_counter() - t14:.1f} s", flush=True)
+
+        # ---- 15. the file-backed datasets: readers, JPEG decode, CLI runs ---
+        t15 = time.perf_counter()
+        files = file_datasets(os.path.join(run_dir, "files"), smi, phase11, n_layers,
+                              text_layers)
+        rect_launches.update(files["rect"])
+        masked_launches.update(files["masked"])
+        rect_replayed.update(files["rect_replayed"])
+        print(f"chip_smoke: phase 15 in {time.perf_counter() - t15:.1f} s", flush=True)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    print(f"chip_smoke: phases 1-14 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",

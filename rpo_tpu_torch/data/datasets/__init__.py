@@ -1,11 +1,16 @@
-"""Dataset classes.  Importing this package registers the ported ones:
-so far only the synthetic dataset; the file-backed datasets of
-``rpo_tpu/data/datasets`` follow."""
+"""Dataset classes.  Importing this package registers all of them: the
+paper's fifteen file-backed datasets, copies of ``rpo_tpu/data/datasets``
+(the reference's datasets/), and the synthetic one."""
+from . import caltech101  # noqa: F401
+from . import dtd  # noqa: F401
+from . import eurosat  # noqa: F401
+from . import fgvc_aircraft  # noqa: F401
+from . import food101  # noqa: F401
+from . import imagenet  # noqa: F401
+from . import imagenet_variants  # noqa: F401
+from . import oxford_flowers  # noqa: F401
+from . import oxford_pets  # noqa: F401
+from . import stanford_cars  # noqa: F401
+from . import sun397  # noqa: F401
 from . import synthetic  # noqa: F401
-
-# the JAX package's file-backed datasets, by registry name
-NOT_PORTED = (
-    "Caltech101", "DescribableTextures", "EuroSAT", "FGVCAircraft", "Food101", "ImageNet",
-    "ImageNetA", "ImageNetR", "ImageNetSketch", "ImageNetV2", "OxfordFlowers", "OxfordPets",
-    "StanfordCars", "SUN397", "UCF101",
-)
+from . import ucf101  # noqa: F401

@@ -18,12 +18,18 @@ per-image augmentation plan in item order.  The global stream therefore
 advances by the same draws as the JAX loader's, and the two give equal
 batches.  With INPUT.DEVICE_RESIZE a train batch carries the raw sources
 and the drawn crop boxes and flips instead (``_make_device_augment_batch``),
-which the train step applies on the device.  Left for later: the native
-JPEG paths, which a synthetic source never reaches (Pillow and the numpy
-resample decode and resize a file meanwhile).
+which the train step applies on the device.
+
+An all-JPEG batch goes to the native pipeline (``rpo_tpu_torch/_native``)
+whole: its C++ thread pool of ``num_workers`` threads decodes, resizes,
+crops and flips every image by the plans drawn here, and an image it
+refuses falls back to the Python path alone.  Without the library
+(``RPO_TPU_NO_NATIVE=1``, or no compiler or libjpeg) the Python thread
+pool does the batch.
 """
 from __future__ import annotations
 
+import ctypes
 import queue
 import random
 import threading
@@ -32,7 +38,9 @@ from typing import Callable, Dict, Iterator, List, Sequence
 
 import numpy as np
 
+from .._native import get_lib
 from .datum import Datum
+from .transforms import is_jpeg
 
 PREFETCH = 2  # batches the producer may have ready ahead of the consumer
 
@@ -67,20 +75,28 @@ class BatchLoader:
     def _make_batch(self, batch_items: List[Datum], rng=None) -> Dict[str, np.ndarray]:
         if self.train and getattr(self.transform, "device_resize", 0):
             return self._make_device_augment_batch(batch_items, rng=rng)
-        # the plans are drawn here, in item order, from the private
-        # per-epoch rng; the pool only decodes and resizes.  Eval batches
-        # draw none (make_plan(train=False) is None)
-        has_plan = self.train and hasattr(self.transform, "make_plan")
-        plans = [self.transform.make_plan(it.impath, True, rng=rng) if has_plan else None
-                 for it in batch_items]
+        imgs = self._native_eval_batch(batch_items)
+        if imgs is None:
+            # the plans are drawn here, in item order, from the private
+            # per-epoch rng; the native pool or the thread pool only
+            # decodes and resizes.  Eval batches draw none
+            # (make_plan(train=False) is None) and never reach the native
+            # train entry point
+            has_plan = self.train and hasattr(self.transform, "make_plan")
+            plans = [self.transform.make_plan(it.impath, True, rng=rng) if has_plan else None
+                     for it in batch_items]
+            imgs = self._native_train_batch(batch_items, plans) if has_plan else None
+        else:
+            plans, has_plan = [None] * len(batch_items), False
+        if imgs is None:
 
-        def apply(item_plan):
-            item, plan = item_plan
-            if has_plan:
-                return self.transform(item.impath, self.train, plan=plan)
-            return self.transform(item.impath, self.train)
+            def apply(item_plan):
+                item, plan = item_plan
+                if has_plan:
+                    return self.transform(item.impath, self.train, plan=plan)
+                return self.transform(item.impath, self.train)
 
-        imgs = list(self.pool.map(apply, zip(batch_items, plans)))
+            imgs = list(self.pool.map(apply, zip(batch_items, plans)))
         B = self.batch_size
         out_img = np.zeros((B,) + imgs[0].shape, dtype=imgs[0].dtype)
         out_lab = np.zeros((B,), dtype=np.int32)
@@ -108,10 +124,14 @@ class BatchLoader:
         plans = [tp.make_plan(it.impath, True, size=sz, rng=rng)
                  for it, sz in zip(batch_items, sizes)]
         exact = [sz == (S, S) for sz in sizes]
-        host_boxes = [None if (ex or plan is None) else plan[0]
-                      for ex, plan in zip(exact, plans)]
-        imgs = list(self.pool.map(lambda ib: tp.raw_source(ib[0].impath, box=ib[1]),
-                                  zip(batch_items, host_boxes)))
+        # all sources exact: the native batch decode (at size S its eval
+        # entry point is raw_source), else the thread pool
+        imgs = self._native_fixed_batch(batch_items, S) if all(exact) else None
+        if imgs is None:
+            host_boxes = [None if (ex or plan is None) else plan[0]
+                          for ex, plan in zip(exact, plans)]
+            imgs = list(self.pool.map(lambda ib: tp.raw_source(ib[0].impath, box=ib[1]),
+                                      zip(batch_items, host_boxes)))
         B = self.batch_size
         out_img = np.zeros((B, S, S, 3), np.uint8)
         out_lab = np.zeros((B,), np.int32)
@@ -129,6 +149,74 @@ class BatchLoader:
                 out_flip[i] = 1 if flip else 0
         return {"img": out_img, "label": out_lab, "mask": out_mask, "n": len(batch_items),
                 "box": out_box, "flip": out_flip}
+
+    def _native_train_batch(self, batch_items: List[Datum], plans):
+        """A train batch of JPEGs decoded, cropped, resized and flipped by
+        ``plans`` in the C++ thread pool (None where the native path does
+        not apply); an image it refuses goes through the Python path."""
+        tp = self.transform
+        if not self.train or not hasattr(tp, "size") or \
+                getattr(tp, "interpolation", "") != "bicubic" or \
+                not all(is_jpeg(it.impath) for it in batch_items):
+            return None
+        lib = get_lib()
+        if lib is None:
+            return None
+        n, size = len(batch_items), tp.size
+        boxes = np.full((n, 4), -1, np.int32)  # no box: resize-shorter and centre crop
+        flips = np.zeros((n,), np.uint8)
+        for i, plan in enumerate(plans):
+            if plan is None:
+                continue
+            box, flip = plan
+            flips[i] = 1 if flip else 0
+            if box is not None:
+                boxes[i] = box
+        out = np.empty((n, size, size, 3), np.uint8)
+        ok = np.zeros((n,), np.uint8)
+        paths = (ctypes.c_char_p * n)(*[it.impath.encode() for it in batch_items])
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.rpo_train_preprocess_batch(
+            paths, boxes.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            flips.ctypes.data_as(u8p), n, size, out.ctypes.data_as(u8p),
+            ok.ctypes.data_as(u8p), self.num_workers)
+        return [out[i] if ok[i] else tp(it.impath, True, plan=plans[i])
+                for i, it in enumerate(batch_items)]
+
+    def _native_eval_batch(self, batch_items: List[Datum]):
+        if self.train:
+            return None
+        tp = self.transform
+        # with DEVICE_RESIZE = S an eval batch ships the (S, S) sources:
+        # resize-shorter to S and a centre crop of S is raw_source's
+        size = getattr(tp, "device_resize", 0) or getattr(tp, "size", 0)
+        return self._native_fixed_batch(batch_items, size)
+
+    def _native_fixed_batch(self, batch_items: List[Datum], size: int):
+        """A batch of JPEGs decoded, resized shorter side first and
+        centre-cropped to ``size`` in the C++ thread pool (None where the
+        native path does not apply); an image it refuses goes through the
+        Python path at the same size."""
+        tp = self.transform
+        if not size or getattr(tp, "interpolation", "") != "bicubic" or \
+                not all(is_jpeg(it.impath) for it in batch_items):
+            return None
+        lib = get_lib()
+        if lib is None:
+            return None
+        n = len(batch_items)
+        out = np.empty((n, size, size, 3), np.uint8)
+        ok = np.zeros((n,), np.uint8)
+        paths = (ctypes.c_char_p * n)(*[it.impath.encode() for it in batch_items])
+        u8p = ctypes.POINTER(ctypes.c_uint8)
+        lib.rpo_eval_preprocess_batch(paths, n, size, out.ctypes.data_as(u8p),
+                                      ok.ctypes.data_as(u8p), self.num_workers)
+        # a refused image: raw_source at S for DEVICE_RESIZE, never the
+        # full-size transform
+        resized = getattr(tp, "device_resize", 0) == size
+        return [out[i] if ok[i] else
+                (tp.raw_source(it.impath) if resized else tp(it.impath, False))
+                for i, it in enumerate(batch_items)]
 
     def _order(self) -> List[int]:
         order = list(range(len(self.items)))

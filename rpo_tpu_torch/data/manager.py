@@ -4,12 +4,14 @@ Port of ``rpo_tpu/data/manager.py`` (the role of Dassl's DataManager):
 resolves cfg.DATASET.NAME in the registry, builds the transform pipeline
 from cfg.INPUT, and gives the trainer its loaders and class metadata.
 On one card a batch is padded to the batch size; padding to a multiple
-of the devices waits for the multi-GPU port.
+of the devices waits for the multi-GPU port.  TRAIN.TENSOR_PARALLEL is
+checked here, where the JAX package checks it (``parallel.tp.resolve_tp``).
 """
 from __future__ import annotations
 
 from ..engine.registry import DATASET_REGISTRY
-from . import datasets
+from ..parallel.tp import resolve_tp
+from . import datasets  # noqa: F401  registers the datasets
 from .loader import BatchLoader
 from .transforms import TransformPipeline
 
@@ -17,11 +19,11 @@ from .transforms import TransformPipeline
 class DataManager:
     def __init__(self, cfg):
         self.cfg = cfg
-        name = cfg.DATASET.NAME
-        if name in datasets.NOT_PORTED:
-            raise KeyError(f"dataset {name!r} is not ported yet; ported: "
-                           f"{DATASET_REGISTRY.registered_names()}")
-        self.dataset = DATASET_REGISTRY.get(name)(cfg)
+        tp = resolve_tp(cfg)
+        if tp:
+            print(f"(!) TRAIN.TENSOR_PARALLEL={tp}: this package runs on one device; the "
+                  "tensor-parallel mesh is not ported yet")
+        self.dataset = DATASET_REGISTRY.get(cfg.DATASET.NAME)(cfg)
         transform = TransformPipeline(cfg.INPUT)
         self.transform = transform
 

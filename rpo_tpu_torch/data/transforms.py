@@ -11,11 +11,15 @@ instead (``raw_source``) and the resize runs on the device
 The resize is Pillow's ``Image.resize(..., BICUBIC | BILINEAR, box=...)``
 written in numpy (``resample``): the same filter taps, the same 22-bit
 fixed-point coefficients and the same round, shift and clamp after each
-pass, horizontal first, so its uint8 output equals Pillow's.  Pillow is
-imported only to decode an image file: the synthetic path needs none.
+pass, horizontal first, so its uint8 output equals Pillow's.  A JPEG
+goes first to the native pipeline (``rpo_tpu_torch/_native``: libjpeg's
+decode and the same resample in C++), which also reads an image's size
+from its header; where that library is unavailable or refuses the file,
+Pillow decodes it (imported only then: the synthetic path needs none).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import random
 import zlib
@@ -23,6 +27,8 @@ from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+
+from .._native import get_lib
 
 # CLIP's pixel statistics (the RPO configs' INPUT.PIXEL_MEAN / PIXEL_STD)
 CLIP_PIXEL_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -214,9 +220,17 @@ class TransformPipeline:
                 f"{self.interpolation!r}); all CLIP protocol configs set bicubic")
 
     def image_size(self, impath: str) -> Tuple[int, int]:
-        """(width, height), from the header only for a file."""
+        """(width, height), from the header only for a file: a JPEG's
+        through the native library where it is available, so that a host
+        without Pillow still plans its crops."""
         if impath.startswith("synthetic://"):
             return (224, 224)
+        if is_jpeg(impath):
+            lib = get_lib()
+            if lib is not None:
+                w, h = ctypes.c_int(), ctypes.c_int()
+                if lib.rpo_image_size(impath.encode(), ctypes.byref(w), ctypes.byref(h)) == 0:
+                    return (w.value, h.value)
         from PIL import Image
 
         with Image.open(impath) as img:
@@ -287,6 +301,9 @@ class TransformPipeline:
             return np.ascontiguousarray(img)
         if train and plan is None:
             plan = self.make_plan(impath, train)
+        native = self._native_path(impath, train, plan)
+        if native is not None:
+            return native
         img = load_image(impath)
         box, flip = plan if (train and plan is not None) else (None, False)
         if box is not None:
@@ -298,6 +315,33 @@ class TransformPipeline:
         if flip:
             img = img[:, ::-1]
         return np.ascontiguousarray(img)
+
+    def _native_path(self, impath: str, train: bool, plan) -> Optional[np.ndarray]:
+        """The C++ decode, resize and crop of one JPEG (bicubic only), or
+        None where the library is unavailable or refuses the file.  The
+        randomness is in ``plan``: the library only carries it out."""
+        if self.interpolation != "bicubic" or not is_jpeg(impath):
+            return None
+        lib = get_lib()
+        if lib is None:
+            return None
+        path_b = impath.encode()
+        out = np.empty((self.size, self.size, 3), dtype=np.uint8)
+        out_ptr = out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+        if train and plan is not None and plan[0] is not None:
+            (left, top, cw, ch), flip = plan
+            rc = lib.rpo_train_preprocess(path_b, left, top, cw, ch, int(flip), self.size,
+                                          out_ptr)
+        else:
+            rc = lib.rpo_eval_preprocess(path_b, self.size, out_ptr)
+            if rc == 0 and train and plan is not None and plan[1]:
+                out = out[:, ::-1].copy()  # a flip without a crop
+        return out if rc == 0 else None
+
+
+def is_jpeg(impath: str) -> bool:
+    """Whether the native pipeline may take the path (by its suffix)."""
+    return impath.lower().endswith((".jpg", ".jpeg"))
 
 
 def device_normalize_fn(mean: Iterable[float], std: Iterable[float], dtype=None):

@@ -8,14 +8,21 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def no_tf32() -> None:
-    """Full float32 on the card: no TF32 in cuBLAS's matmuls (PyTorch's
-    default already) nor in cuDNN's convolutions (PyTorch's default is
-    TF32 there).  A float32 run of the port (PREC fp32, ``clip.load``
-    without a dtype) keeps the JAX package's float32 contract; bfloat16
-    runs are unaffected."""
+def no_tf32_no_bf16_reduction() -> None:
+    """Full-precision sums on the card, as the JAX package's contract has
+    them (matmuls accumulate in float32):
+
+    - no TF32 in cuBLAS's matmuls (PyTorch's default already);
+    - no TF32 in cuDNN's convolutions (PyTorch's default is TF32 there);
+    - no reduced-precision reduction in cuBLAS's bfloat16 matmuls
+      (PyTorch's default allows one, which may sum split-K partials in
+      bfloat16).
+
+    A float32 run (PREC fp32, ``clip.load`` without a dtype) keeps the
+    float32 contract and a bfloat16 run sums in float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
@@ -24,7 +31,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     ``None`` means the CUDA card.  Without one this raises rather than
     carrying on quietly on the CPU: a caller who wants the CPU (the tests,
     which hold the port against the JAX package there) passes
-    ``device="cpu"``.  A CUDA device turns TF32 off (``no_tf32``).
+    ``device="cpu"``.  A CUDA device turns TF32 and cuBLAS's
+    reduced-precision bfloat16 reduction off (``no_tf32_no_bf16_reduction``).
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -34,5 +42,5 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         device = "cuda"
     device = torch.device(device)
     if device.type == "cuda":
-        no_tf32()
+        no_tf32_no_bf16_reduction()
     return device

@@ -130,13 +130,26 @@ def test_registries_and_unported_names(tmp_path):
 
     assert TRAINER_REGISTRY.registered_names() == [
         "CoCoOp", "CoOp", "LP", "RPO", "ZeroshotCLIP", "ZeroshotCLIP2"]
-    assert DATASET_REGISTRY.registered_names() == ["Synthetic"]
+    assert DATASET_REGISTRY.registered_names() == [
+        "Caltech101", "DescribableTextures", "EuroSAT", "FGVCAircraft", "Food101", "ImageNet",
+        "ImageNetA", "ImageNetR", "ImageNetSketch", "ImageNetV2", "OxfordFlowers", "OxfordPets",
+        "SUN397", "StanfordCars", "Synthetic", "UCF101"]
     with pytest.raises(KeyError, match="Unknown trainer: 'MaPLe'"):
         TRAINER_REGISTRY.get("MaPLe")
-    cfg = get_cfg_default()
-    cfg.merge_from_file(os.path.join(REPO, "configs/datasets/oxford_pets.yaml"))
-    with pytest.raises(KeyError, match=r"not ported yet; ported: \['Synthetic'\]"):
-        DataManager(cfg)
+    with pytest.raises(KeyError):
+        DATASET_REGISTRY.get("CIFAR10")
+    # every file-backed dataset is ported: a root without its tree raises
+    # what the JAX package's reader raises
+    from rpo_tpu.data.manager import DataManager as JaxDataManager
+    from rpo_tpu.engine import get_cfg_default as jax_cfg
+    import rpo_tpu.data.datasets  # noqa: F401
+
+    for get, manager in ((get_cfg_default, DataManager), (jax_cfg, JaxDataManager)):
+        cfg = get()
+        cfg.merge_from_file(os.path.join(REPO, "configs/datasets/oxford_pets.yaml"))
+        cfg.DATASET.ROOT = str(tmp_path)
+        with pytest.raises(FileNotFoundError, match="trainval.txt"):
+            manager(cfg)
 
 
 def _rpo_cfg(tmp_path, *opts):

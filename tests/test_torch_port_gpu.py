@@ -704,3 +704,21 @@ def test_coop_rn50_graph_replays_equal_eager_steps_on_gpu():
     assert all(map(torch.equal, optim.tree_leaves(trainer.params), eager_params))
     assert graph.launches_per_replay["rect_attention.launches"] == 0
     assert graph.launches_per_replay["masked_attention.launches"] == trainer.clip_cfg.text_layers
+
+
+@pytest.mark.gpu
+def test_resolve_device_turns_reduced_precision_off():
+    """``resolve_device()`` (every entry point's) leaves TF32 and cuBLAS's
+    reduced-precision bf16 reduction off on the card, whatever they were;
+    chip_smoke.py phase 1 takes its settings from it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.device import resolve_device
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    assert resolve_device() == torch.device("cuda")
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
