@@ -10,24 +10,29 @@ Phases, one line each (any failure exits non-zero):
               cuBLAS's reduced-precision bf16 reduction as the package's
               ``device.resolve_device`` leaves them (off, else it fails);
   2. build    every CUDA source under rpo_tpu_torch/ops/csrc with nvcc;
-  3. kernels  each kernel against its plain PyTorch version on the card
-              at the main paths' shapes and at the bf16 attention
-              kernel's edges, with its time (the median of calls each
+  3. kernels  the package's kernel selftest (rpo_tpu_torch/ops/selftest.py,
+              run_selftest; one line a check, any failed check fails the
+              phase): each kernel against its plain PyTorch version on the
+              card at the main paths' shapes and at the bf16 attention
+              kernel's edges, the attention kernels' mean error against an
+              f64 evaluation of their contract (at most 1.1x their plain
+              versions'), the rect kernel at the RPO train step's two
+              shapes and the baselines' frozen image tower (batch 32 and
+              1), the masked kernel under grad ((10 | 80, 8, 16, 16, 64):
+              dq, dk, dv against autograd through the plain version), the
+              fused layers element by element and in the mean with their
+              planted-fault controls, the wrappers' refusals, the paired
+              rect backward, a whole rect residual block and the device
+              preprocess against the host's resample; then, on inputs of
+              their own, the kernels' times (the median of calls each
               synchronised, launch included), the plain version's, one
               PyTorch library call's and the card's bound (for the fused
               rect halves, the unfused port path's time instead of a
               library call's, and each half's launch plan and device time
               split by kernel; the masked kernel at L = 77, 24 and 16);
               for the attention kernels and SDPA also back-to-back calls
-              and the device time alone (torch.profiler); the attention
-              kernels' mean error against an f64 evaluation of their
-              contract, held to 1.1x their plain versions; the rect
-              kernel also at the RPO train step's two shapes (batch 4:
-              the 197 frozen rows, the 24 prompt rows over them) and at
-              the baselines' frozen image tower (batch 32 and 1); the
-              masked kernel under grad at the baselines' text towers
-              ((10 | 80, 8, 16, 16, 64)): dq, dk, dv against autograd
-              through the plain version, and the plain backward's time;
+              and the device time alone (torch.profiler), and the plain
+              backward's time under grad;
   4. RPO      RPO evaluation of ViT-B/16 in bf16 (K=24, 51 classes) on
               three batches of 100 seeded uint8 images, through the
               trainer's entry points; launches counted (12 masked in the
@@ -167,6 +172,14 @@ Phases, one line each (any failure exits non-zero):
               beside phase 11's and the batches the native library made.
               Without a decoder (c) prints one line saying what is missing
               and which CPU test holds that path.
+ 16. tools   the package's tools: ``python -m
+              rpo_tpu_torch.tools.kernel_selftest`` as a subprocess (exit
+              0, as many checks as phase 3, all passing);
+              ``tools/profile_step.py`` for train (graph replays) and eval,
+              5 steps each (device time by group, idle share); phase 11's
+              checkpoint through ``tools/export_torch_ckpt.py`` and back;
+              ``tools/bench_device_preprocess.py`` for eval and train at a
+              few iterations.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
 from seed 1 and shared by the methods of phases 4-10.  Imports nothing
@@ -174,7 +187,9 @@ of JAX or rpo_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
+import io
 import json
 import math
 import os
@@ -213,19 +228,6 @@ N_TRAIN_TIMED = 20
 GRAPH_GROUP = 5  # phase 10: steps a replay of the grouped graph
 RUN_SHOTS = 16  # phase 11: Synthetic's 10 classes x 16 shots, 40 steps an epoch at batch 4
 RUN_EPOCHS = 2
-NEG_INF = -1e9
-BF16_TOL = 2e-2  # inputs N(0, 1): about 2 bf16 ulps of outputs below 2
-F32_TOL = 1e-5
-# The fused text layer against its plain version is held element by element
-# to BF16_TOL * max(|plain|, 1) (a rounding flip is one bf16 ulp, 2^-7 of
-# the element at most) and in the mean to FUSED_MEAN_TOL: on the H100 the
-# mean error is 0 to 3.7e-5 at the phase-3 shapes (flips on a few elements
-# in 10^3), while a dropped bias of std 0.02 moves it by about 1.6e-2.
-FUSED_MEAN_TOL = 1e-4
-# An attention kernel's mean error against the f64 evaluation of its
-# contract, at most this times its plain version's: both round at the same
-# points, so they differ only in the f32 summation order.
-CONTRACT_RATIO = 1.1
 # Slice logits, kernel vs plain attention in every layer: the two differ
 # by bf16 rounding flips (summation order) that compound over 12 layers;
 # logits are exp(logit_scale) = 14.3 x a cosine (averaged over K pairs
@@ -289,146 +291,10 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def fused_errors(out: torch.Tensor, ref: torch.Tensor):
-    """(max abs error, mean abs error, largest error over its element's
-    tolerance BF16_TOL * max(|ref|, 1)) of the fused layer against its
-    plain version."""
-    diff = (out.float() - ref.float()).abs()
-    tol = BF16_TOL * ref.float().abs().clamp(min=1.0)
-    return diff.max().item(), diff.mean().item(), (diff / tol).max().item()
-
-
 def bound(n_bytes: float, n_flops: float, bw: float, peak: float):
     """(bound ms, "bytes" or "operations") for the card's peaks."""
     bytes_ms, flops_ms = n_bytes / bw * 1e3, n_flops / peak * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
-
-
-def contract_check(label: str, kernel, plain, q, k, v, bias=None) -> None:
-    """The kernel and its plain version against an f64 evaluation of their
-    contract (probabilities rounded to bf16, the output not rounded): the
-    kernel's mean abs error at most CONTRACT_RATIO x the plain version's.
-    A slip in the rounding order (p cast before it is normalised, the bias
-    added in another rounding) moves outputs by about 1e-3, within
-    BF16_TOL, and shows here."""
-    with torch.no_grad():
-        s64 = torch.matmul(q.double(), k.double().transpose(-1, -2)) * q.shape[-1] ** -0.5
-        if bias is not None:
-            s64 = s64 + bias.double()
-        exact = torch.matmul(torch.softmax(s64, -1).to(torch.bfloat16).double(), v.double())
-        del s64
-        means, parts = {}, []
-        for what, fn in (("kernel", kernel), ("plain", plain)):
-            out = fn()
-            means[what] = (out.double() - exact).abs().mean().item()
-            off = int((out != exact.to(torch.bfloat16)).sum())
-            parts.append(f"{what} mean abs {means[what]:.4e}, {off} of {out.numel()} off the "
-                         "correctly rounded value")
-        del exact
-    ratio = means["kernel"] / means["plain"]
-    ok = ratio <= CONTRACT_RATIO
-    print(f"kernel {label} bf16 against an f64 evaluation of its contract: " + "; ".join(parts)
-          + f"; kernel / plain {ratio:.4f} (at most {CONTRACT_RATIO}) {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        fail(f"{label}: mean error against the f64 contract {ratio:.4f} x the plain version's")
-
-
-def path_layout_qkv(gen, B, H, Lq, Lk, D, dtype):
-    """q, k, v as the rect eval tower hands them to the kernel: head views
-    of the projection outputs (B, L, H*D) and (B, Lk, 2*H*D)."""
-    q = torch.randn(B, Lq, H * D, generator=gen, device="cuda").to(dtype)
-    kv = torch.randn(B, Lk, 2 * H * D, generator=gen, device="cuda").to(dtype)
-    q = q.view(B, Lq, H, D).permute(0, 2, 1, 3)
-    kv = kv.view(B, Lk, 2 * H, D).permute(0, 2, 1, 3)
-    return q, kv[:, :H], kv[:, H:]
-
-
-def train_layout_qkv(gen, B, H, Lq, Lk, D, dtype):
-    """q, k, v as the split vision tower hands them to the kernel: k and v
-    head views of the frozen rows' fused QKV output (B, Lk, 3*H*D); q of
-    the same output (the frozen rows, Lq = Lk) or of the prompt rows' own
-    q projection (B, Lq, H*D)."""
-    q, k, v = fused_qkv(gen, B, H, Lk, D, dtype)
-    if Lq != Lk:
-        q = torch.randn(B, Lq, H * D, generator=gen, device="cuda").to(dtype)
-        q = q.view(B, Lq, H, D).permute(0, 2, 1, 3)
-    return q, k, v
-
-
-def fused_qkv(gen, B, H, L, D, dtype):
-    """q, k, v as a self-attention tower hands them to the kernel: head
-    views of the fused QKV projection output (B, L, 3*H*D)."""
-    qkv = torch.randn(B, L, 3 * H * D, generator=gen, device="cuda").to(dtype)
-    qkv = qkv.view(B, L, 3, H, D).permute(2, 0, 3, 1, 4)
-    return qkv[0], qkv[1], qkv[2]
-
-
-def mask(kind: str, B: int, L: int) -> torch.Tensor:
-    """The masked kernel's f32 biases, built with numpy: the shared causal
-    mask of the text towers, RPO's per-class text mask (causal, and every
-    column >= the class's prompt length), RPO's shared visual mask (the
-    last K columns), and a per-batch causal mask with one row fully
-    masked, and a per-class mask at any L: causal, and every column >= the
-    class's length 1 + b % L."""
-    i = np.arange(L)
-    causal = np.where(i[None, :] > i[:, None], NEG_INF, 0.0).astype(np.float32)
-    if kind == "causal":
-        m = causal[None, None]
-    elif kind == "text":
-        lens = 4 + np.arange(B) % (L - K - 4)  # prompt lengths 4 .. L-K-1
-        m = np.where((i[None, None, :] >= lens[:, None, None]) | (causal[None] < 0), NEG_INF, 0.0)
-        m = m.astype(np.float32)[:, None]
-    elif kind == "prefix":
-        lens = 1 + np.arange(B) % L
-        m = np.where((i[None, None, :] >= lens[:, None, None]) | (causal[None] < 0), NEG_INF, 0.0)
-        m = m.astype(np.float32)[:, None]
-    elif kind == "visual":
-        m = np.zeros((1, 1, L, L), np.float32)
-        m[..., L - K:] = NEG_INF
-    elif kind == "full row":
-        m = np.tile(causal, (B, 1, 1, 1)).reshape(B, 1, L, L)
-        m[1, 0, 4, :] = NEG_INF
-    else:
-        raise KeyError(kind)
-    return torch.from_numpy(m).cuda()
-
-
-def text_block(gen, d: int) -> dict:
-    """One text layer's params on the card in bf16: CLIP's init scales,
-    with nonzero biases and LayerNorm parameters other than (1, 0)."""
-    def normal(*shape, std):
-        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
-
-    return {
-        "ln_1": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
-        "attn": {"qkv_w": normal(d, 3 * d, std=d ** -0.5), "qkv_b": normal(3 * d, std=0.02),
-                 "out_w": normal(d, d, std=d ** -0.5 / 5), "out_b": normal(d, std=0.02)},
-        "ln_2": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
-        "mlp": {"fc_w": normal(d, 4 * d, std=(2 * d) ** -0.5), "fc_b": normal(4 * d, std=0.02),
-                "proj_w": normal(4 * d, d, std=d ** -0.5 / 5), "proj_b": normal(d, std=0.02)},
-    }
-
-
-def kernel_group(name: str) -> str:
-    """The group of a device operation, by its kernel's name."""
-    n = name.lower()
-    return ("fused_text_layer kernel" if "fused_text_layer" in n
-            else "fused_rect_attn_half kernel" if "fused_rect_attn_half" in n
-            else "fused_mlp_half kernel" if "fused_mlp_half" in n
-            else "masked_attention kernel" if "attention_kernel" in n and "true" in n
-            else "rect_attention kernel" if "attention_kernel" in n
-            else "conv (cuDNN)" if any(w in n for w in ("fprop", "implicit_gemm", "cudnn",
-                                                        "winograd", "conv2d", "convolve"))
-            else "batch_norm" if "batch_norm" in n or "bn_fw" in n
-            else "pooling" if "pool" in n
-            else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90"))
-            else "layer_norm" if "layer_norm" in n
-            else "softmax/reduce" if any(w in n for w in ("softmax", "reduce"))
-            else "copy/cast" if any(w in n for w in ("copy", "memcpy", "cat", "nchwtonhwc",
-                                                     "nhwctonchw"))
-            else "elementwise" if "elementwise" in n
-            else "other")
 
 
 def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batch",
@@ -443,6 +309,8 @@ def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batc
     saw, by group (empty where it saw no device time), and the device's
     busy milliseconds (0 there)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from rpo_tpu_torch.tools.timing import kernel_group
 
     step(images)  # warm
     torch.cuda.synchronize()
@@ -1993,6 +1861,80 @@ def file_datasets(out: str, smi: str, phase11: dict, n_layers: int, text_layers:
                              text_layers)
 
 
+def run_tool(main_fn, argv) -> tuple:
+    """A tool's ``main(argv)`` in this process: (its exit code, its
+    standard output)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    return rc, buf.getvalue()
+
+
+def tools_phase(run_dir: str, smi: str, selftest_total: int) -> None:
+    """Phase 16: the package's tools on the card.  (a) The kernel-selftest
+    CLI as a subprocess: exit 0, every check passing, as many as phase 3
+    ran.  (b) ``profile_step`` for train (graph replays) and eval, 5 steps
+    each: its device operations by group and the idle share.  (c) Phase
+    11's checkpoint exported to the reference's torch format and read back
+    by the port's loader, equal to the checkpoint.  (d)
+    ``bench_device_preprocess`` for eval and train at a few iterations:
+    its JSON line."""
+    from rpo_tpu_torch.engine.trainer import _load_checkpoint_file
+    from rpo_tpu_torch.tools import bench_device_preprocess, export_torch_ckpt, profile_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "rpo_tpu_torch.tools.kernel_selftest", "--quiet"],
+                          cwd=here, capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    out = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    ok = proc.returncode == 0 and out.get("value") == out.get("total") == selftest_total
+    print(f"tools: python -m rpo_tpu_torch.tools.kernel_selftest: exit {proc.returncode}, "
+          f"{out.get('value')} of {out.get('total')} checks pass (phase 3 ran {selftest_total}), "
+          f"backend {out.get('backend')}, device {out.get('device')}, nvidia-smi "
+          f"{out.get('nvidia_smi')}, checks {out.get('seconds')} s, build "
+          f"{out.get('build_seconds')} s, the process {time.perf_counter() - t:.1f} s "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        print(proc.stderr[-4000:], flush=True)
+        fail("the kernel-selftest CLI did not pass every check of phase 3's table")
+
+    for what in ("train", "eval"):
+        t = time.perf_counter()
+        rc, text = run_tool(profile_step.main, ["--phase", what, "--steps", "5", "--top", "8"])
+        shown = text[text.index("by group:"):] if "by group:" in text else text
+        secs = time.perf_counter() - t
+        print(f"tools: profile_step --phase {what} --steps 5 on {smi}, {secs:.1f} s, exit {rc}:\n"
+              + "\n".join(f"  {ln}" for ln in shown.strip().splitlines()), flush=True)
+        if rc != 0 or "window:" not in text:
+            fail(f"profile_step --phase {what} failed (exit {rc})")
+
+    ckpt = os.path.join(run_dir, "train", "prompt_learner", f"model.pth.tar-{RUN_EPOCHS}")
+    exported = os.path.join(run_dir, "exported.pth.tar")
+    method = export_torch_ckpt.export(ckpt, exported)
+    src, back = _load_checkpoint_file(ckpt), _load_checkpoint_file(exported)
+    payload = torch.load(exported, map_location="cpu", weights_only=False)
+    same = (method == "rpo" and set(back["state_dict"]) == set(src["state_dict"])
+            and all(np.array_equal(back["state_dict"][k], np.asarray(v))
+                    for k, v in src["state_dict"].items())
+            and all(isinstance(v, torch.Tensor) for v in payload["state_dict"].values())
+            and payload["epoch"] == src["epoch"] == RUN_EPOCHS)
+    print(f"tools: export_torch_ckpt of phase 11's {os.path.basename(ckpt)}: method {method}, "
+          f"keys {sorted(payload['state_dict'])}, epoch {payload['epoch']}, read back by the "
+          f"port's loader equal to the checkpoint: {same} {'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+        fail("export_torch_ckpt: the exported checkpoint does not read back as phase 11's")
+
+    for what, iters in (("eval", "2"), ("train", "5")):
+        t = time.perf_counter()
+        rc, text = run_tool(bench_device_preprocess.main, ["--phase", what, "--iters", iters])
+        line = text.strip().splitlines()[-1] if text.strip() else ""
+        print(f"tools: bench_device_preprocess --phase {what} --iters {iters}, "
+              f"{time.perf_counter() - t:.1f} s, exit {rc}: {line}", flush=True)
+        if rc != 0 or not line.startswith("{") or json.loads(line)["value"] <= 0:
+            fail(f"bench_device_preprocess --phase {what} printed no result")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA card; none is available", file=sys.stderr)
@@ -2012,6 +1954,11 @@ def main() -> int:
     from rpo_tpu_torch.ops.attention import multihead_attention_rect
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.selftest import (FUSED_TEXT_CHECKS, RECT_HALF_CHECKS, TRAIN_SHAPES,
+                                            first_max_abs_err, fused_qkv, path_layout_qkv,
+                                            run_selftest, train_layout_qkv)
+    from rpo_tpu_torch.ops.selftest import attention_bias as mask
+    from rpo_tpu_torch.ops.selftest import random_block as text_block
     from rpo_tpu_torch.tools.timing import (call_ms, device_ms, device_ms_by_kernel, fmt_ms,
                                             stream_ms)
 
@@ -2043,135 +1990,20 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     # ---- 3. kernels against their plain versions --------------------------
+    # the correctness checks are the package's kernel selftest
+    # (rpo_tpu_torch/ops/selftest.py), run before any timing; the timings
+    # below draw their own inputs
+    selftest = run_selftest(verbose=False, device=torch.device("cuda"))
+    for check, status in selftest["checks"].items():
+        print(f"{check}: {status}", flush=True)
+    print(f"kernel selftest: {selftest['value']} of {selftest['total']} checks pass in "
+          f"{selftest['seconds']} s", flush=True)
+    failed = [check for check, status in selftest["checks"].items() if not status.startswith("ok")]
+    if failed:
+        fail(f"kernel selftest: {len(failed)} of {selftest['total']} checks failed, the first "
+             f"{failed[0]}: {selftest['checks'][failed[0]]}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    checks = [
-        ("eval layer, path layout", (100, 12, 221, 197, 64), torch.bfloat16, BF16_TOL, False),
-        ("eval layer, paired adapter", (100, 6, 221, 197, 128), torch.bfloat16, BF16_TOL, True),
-        ("CoOp/zero-shot eval layer", (100, 12, 197, 197, 64), torch.bfloat16, BF16_TOL, False),
-        ("ragged tiny", (3, 2, 9, 5, 32), torch.float32, F32_TOL, False),
-        ("TINY tower", (3, 1, 9, 5, 64), torch.bfloat16, BF16_TOL, False),
-        ("eval layer f32", (2, 12, 221, 197, 64), torch.float32, F32_TOL, False),
-        ("head dim 128", (2, 4, 221, 197, 128), torch.bfloat16, BF16_TOL, False),
-        ("head dim 32", (2, 3, 70, 130, 32), torch.bfloat16, BF16_TOL, False),
-        ("Lk over 256: two score passes", (2, 2, 33, 300, 64), torch.bfloat16, BF16_TOL, False),
-        # the bf16 kernel's edges: Lq 1 and 17, Lk either side of the
-        # 16-column pad and of the widest row held in registers (256 | 257
-        # at head dim <= 64, 128 | 129 at 128)
-        ("Lq 1, Lk 1", (2, 3, 1, 1, 64), torch.bfloat16, BF16_TOL, False),
-        ("Lq 17, Lk 16: one score tile", (2, 3, 17, 16, 64), torch.bfloat16, BF16_TOL, False),
-        ("Lk 17: one column into a second tile", (2, 3, 17, 17, 64), torch.bfloat16, BF16_TOL,
-         False),
-        ("Lk 256: the widest row in registers", (2, 2, 17, 256, 64), torch.bfloat16, BF16_TOL,
-         False),
-        ("Lk 257: the two-pass route", (2, 2, 17, 257, 64), torch.bfloat16, BF16_TOL, False),
-        ("Lq 1, Lk 300", (2, 2, 1, 300, 64), torch.bfloat16, BF16_TOL, False),
-        ("head dim 32, Lk 257", (2, 4, 17, 257, 32), torch.bfloat16, BF16_TOL, False),
-        ("head dim 128, Lk 16", (2, 4, 17, 16, 128), torch.bfloat16, BF16_TOL, False),
-        ("head dim 128, Lk 129: the two-pass route", (2, 4, 33, 129, 128), torch.bfloat16,
-         BF16_TOL, False),
-    ]
-    rect_err = None
-    for label, (B, H, Lq, Lk, D), dtype, tol, paired in checks:
-        if paired:
-            q, k, v = (torch.randn(B, H, n, D, generator=gen, device="cuda").to(dtype)
-                       for n in (Lq, Lk, Lk))
-            out = ra.rect_attention_paired(q, k, v, D // 2)
-            ref = ra.pair_heads(ra.rect_attention_reference(
-                *(ra.unpair_heads(t, D // 2) for t in (q, k, v))))
-        else:
-            q, k, v = path_layout_qkv(gen, B, H, Lq, Lk, D, dtype)
-            out = ra.rect_attention(q, k, v)
-            ref = ra.rect_attention_reference(q, k, v)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = err <= tol and bool(torch.isfinite(out).all())
-        print(f"kernel rect_attention {label} {(B, H, Lq, Lk, D)} {str(dtype)[6:]}: "
-              f"max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"rect_attention {label}: max abs err {err} > {tol}")
-        if rect_err is None:
-            rect_err = err
-    q, k, v = fused_qkv(gen, 100, 12, 197, 64, torch.bfloat16)
-    contract_check("rect_attention (100,12,197,197,64)", lambda: ra.rect_attention(q, k, v),
-                   lambda: ra.rect_attention_reference(q, k, v), q, k, v)
-    try:
-        z = torch.zeros(1, 1, 197, 128, device="cuda")
-        ra.rect_attention(z[:, :, :8], z, z)
-        fail("rect_attention took f32 K/V that do not fit shared memory")
-    except ValueError as exc:
-        print(f"kernel rect_attention refuses f32 (1,1,8,197,128): {exc}")
-    # the RPO train step's split vision tower at batch 4: the frozen rows,
-    # and the K prompt rows over them
-    train_shapes = {"train frozen rows": (TRAIN_BATCH, 12, 197, 197, 64),
-                    "train prompt rows": (TRAIN_BATCH, 12, K, 197, 64)}
-    for label, shape in train_shapes.items():
-        q, k, v = train_layout_qkv(gen, *shape, torch.bfloat16)
-        out = ra.rect_attention(q, k, v)
-        ref = ra.rect_attention_reference(q, k, v)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = err <= BF16_TOL and bool(torch.isfinite(out).all())
-        print(f"kernel rect_attention {label} {shape} bf16: max_abs_err {err:.3e} "
-              f"(tol {BF16_TOL:g}) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"rect_attention {label}: max abs err {err} > {BF16_TOL}")
-
-    masked_checks = [
-        ("RPO set-up text K/V, shared causal", (51, 8, 77, 64), "causal", torch.bfloat16, BF16_TOL),
-        ("CoOp text, shared causal", (51, 8, 24, 64), "causal", torch.bfloat16, BF16_TOL),
-        ("zero-shot text, shared causal", (51, 8, 16, 64), "causal", torch.bfloat16, BF16_TOL),
-        ("RPO masked text form, per-class mask", (51, 8, 77, 64), "text", torch.bfloat16, BF16_TOL),
-        ("RPO masked vision form, shared visual mask", (4, 12, 221, 64), "visual", torch.bfloat16,
-         BF16_TOL),
-        ("ragged per-batch, one row fully masked", (3, 2, 10, 32), "full row", torch.float32,
-         F32_TOL),
-        ("head dim 128", (2, 4, 77, 128), "causal", torch.bfloat16, BF16_TOL),
-        ("head dim 32", (2, 3, 70, 32), "text", torch.bfloat16, BF16_TOL),
-        # short L: several (b, h) a block (4 at L = 16, 2 at 24), B*H not a
-        # multiple of that, so the last block is ragged
-        ("L 16, B*H 15, per-class mask", (3, 5, 16, 64), "prefix", torch.bfloat16, BF16_TOL),
-        ("L 16, B*H 15, shared causal", (3, 5, 16, 64), "causal", torch.bfloat16, BF16_TOL),
-        ("L 16, B*H 15, per-batch, one row fully masked", (3, 5, 16, 64), "full row",
-         torch.bfloat16, BF16_TOL),
-        ("L 24, B*H 9, per-class mask", (3, 3, 24, 64), "prefix", torch.bfloat16, BF16_TOL),
-        ("L 24, B*H 9, per-batch, one row fully masked", (3, 3, 24, 64), "full row",
-         torch.bfloat16, BF16_TOL),
-        ("L 77, B*H 21, per-class text mask", (7, 3, 77, 64), "text", torch.bfloat16, BF16_TOL),
-        ("L 16, head dim 128, B*H 15", (3, 5, 16, 128), "causal", torch.bfloat16, BF16_TOL),
-    ]
-    masked_err = None
-    for label, (B, H, L, D), kind, dtype, tol in masked_checks:
-        q, k, v = fused_qkv(gen, B, H, L, D, dtype)
-        bias = mask(kind, B, L)
-        out = ma.masked_attention(q, k, v, bias)
-        ref = ma.masked_attention_reference(q, k, v, bias)
-        torch.cuda.synchronize()
-        err = (out.float() - ref.float()).abs().max().item()
-        ok = err <= tol and bool(torch.isfinite(out).all())
-        if bias.shape[0] == 1:  # a shared bias is read in place: as a per-batch copy
-            ok = ok and torch.equal(out, ma.masked_attention(q, k, v, bias.expand(B, 1, L, L)
-                                                             .contiguous()))
-        print(f"kernel masked_attention {label} {(B, H, L, L, D)} bias {tuple(bias.shape)} "
-              f"{str(dtype)[6:]}: max_abs_err {err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}",
-              flush=True)
-        if not ok:
-            fail(f"masked_attention {label}: max abs err {err} > {tol} or shared != per-batch")
-        if masked_err is None:
-            masked_err = err
-    try:
-        z = torch.zeros(2, 2, 77, 64, device="cuda", dtype=torch.bfloat16)
-        ma.masked_attention(z, z, z, torch.zeros(2, 1, 77, 1, device="cuda"))
-        fail("masked_attention took a column-broadcast bias")
-    except ValueError as exc:
-        print(f"kernel masked_attention refuses a (2,1,77,1) bias: {exc}")
-    # the contract at the text towers' lengths: 5 score tiles at L = 77, 2 at
-    # 24 and 16, each with the shared causal bias
-    for L in (77, 24, 16):
-        q, k, v = fused_qkv(gen, 51, 8, L, 64, torch.bfloat16)
-        bias = mask("causal", 51, L)
-        contract_check(f"masked_attention (51,8,{L},{L},64) shared causal",
-                       lambda: ma.masked_attention(q, k, v, bias),
-                       lambda: ma.masked_attention_reference(q, k, v, bias), q, k, v, bias)
+    train_shapes = dict(TRAIN_SHAPES)
 
     # timing: each kernel at its main-path shape, beside plain, SDPA, bound
     def time_attention(label, kernel, plain, library, n_bytes, n_flops, bound_fmt=".4f"):
@@ -2220,12 +2052,6 @@ def main() -> int:
     # square 197 rows at CoOp's batch 32 and at batch 1 (CoCoOp, LP)
     for B in (BASELINE_TRAIN_BATCH, 1):
         q, k, v = fused_qkv(gen, B, 12, 197, 64, torch.bfloat16)
-        out = ra.rect_attention(q, k, v)
-        err = (out.float() - ra.rect_attention_reference(q, k, v).float()).abs().max().item()
-        print(f"kernel rect_attention baseline train ({B}, 12, 197, 197, 64) bf16: max_abs_err "
-              f"{err:.3e} (tol {BF16_TOL:g}) {'ok' if err <= BF16_TOL else 'FAIL'}", flush=True)
-        if err > BF16_TOL:
-            fail(f"rect_attention baseline train batch {B}: max abs err {err} > {BF16_TOL}")
         train_times[f"baseline train batch {B}"] = time_attention(
             f"rect_attention ({B},12,197,197,64) baseline train, frozen tower",
             lambda: ra.rect_attention(q, k, v), lambda: ra.rect_attention_reference(q, k, v),
@@ -2255,18 +2081,7 @@ def main() -> int:
                                                                         torch.bfloat16))
         bias = mask("causal", B, L)
         bias_q = bias.to(q.dtype)
-        out = ma.masked_attention(q, k, v, bias)
-        g = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
-        got = torch.autograd.grad(out, (q, k, v), g)
-        want = torch.autograd.grad(ma.masked_attention_reference(q, k, v, bias), (q, k, v), g)
-        # each gradient within BF16_TOL of max(its largest entry, 1)
-        err = max((a.float() - b.float()).abs().max().item() / max(1.0, b.abs().max().item())
-                  for a, b in zip(got, want))
-        print(f"kernel masked_attention under grad ({B},{H},{L},{L},{D}) shared causal bf16: "
-              f"dq, dk, dv against autograd through the plain version, max_abs_err / max(max|g|, "
-              f"1) {err:.3e} (tol {BF16_TOL:g}) {'ok' if err <= BF16_TOL else 'FAIL'}", flush=True)
-        if err > BF16_TOL:
-            fail(f"masked_attention backward ({B}, {L}): relative err {err} > {BF16_TOL}")
+        g = torch.randn(B, H, L, D, generator=gen, device="cuda").to(q.dtype)
         with torch.no_grad():
             t = time_attention(
                 f"masked_attention ({B},{H},{L},{L},{D}) shared causal, baseline train text tower",
@@ -2281,53 +2096,7 @@ def main() -> int:
               f"kernel's forward {t['ms']:.4f}", flush=True)
         masked_times[f"train {B}x{L}"] = t
 
-    fused_checks = [
-        ("CoCoOp eval chunk, the slice", (510, 16, 512, 8)),
-        ("the JAX selftest shape", (408, 16, 512, 8)),
-        ("ragged N, TINY widths, head dim 32", (13, 16, 64, 2)),
-        ("L 80 (77 padded)", (4, 80, 512, 8)),
-        ("d 768, L 80: the MLP in column passes", (3, 80, 768, 12)),
-    ]
-    fused_err = None
-    for label, (N, L, d, heads) in fused_checks:
-        raw = text_block(gen, d)
-        blk = ftl.with_kernel_layout(raw)
-        x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
-        causal = mask("causal", 1, L)[0, 0]
-        with torch.no_grad():
-            out = ftl.fused_text_layer(x, blk, heads, causal)
-            ref = ftl.fused_text_layer_reference(x, blk, heads, causal)
-            # the weights laid out at the launch instead of once beforehand
-            same = torch.equal(out, ftl.fused_text_layer(x, raw, heads, causal))
-        torch.cuda.synchronize()
-        err, mean, worst = fused_errors(out, ref)
-        ok = worst <= 1 and mean <= FUSED_MEAN_TOL and same and bool(torch.isfinite(out).all())
-        print(f"kernel fused_text_layer {label} {(N, L, d)} {heads} heads bf16: max_abs_err "
-              f"{err:.3e}, max err / tol {worst:.3f} (tol {BF16_TOL:g} x max(|plain|, 1) each), "
-              f"mean {mean:.3e} (tol {FUSED_MEAN_TOL:g}); per-launch layout gives the same "
-              f"output: {same} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"fused_text_layer {label}: max err / tol {worst}, mean {mean}, same {same}")
-        if fused_err is None:
-            fused_err = err
-            # the bounds catch a dropped bias: the plain version without out_b
-            no_bias = {**blk, "attn": {**blk["attn"], "out_b": torch.zeros_like(
-                blk["attn"]["out_b"])}}
-            with torch.no_grad():
-                _, mean_nb, worst_nb = fused_errors(
-                    out, ftl.fused_text_layer_reference(x, no_bias, heads, causal))
-            if worst_nb <= 1 and mean_nb <= FUSED_MEAN_TOL:
-                fail("fused_text_layer's bounds pass a plain version that drops out_b")
-            print(f"kernel fused_text_layer {label}: against the plain version without out_b "
-                  f"(std 0.02) mean {mean_nb:.3e}, max err / tol {worst_nb:.3f}: caught", flush=True)
-    try:
-        with torch.no_grad():
-            ftl.fused_text_layer(x.float(), blk, heads, causal)
-        fail("fused_text_layer took f32 input")
-    except TypeError as exc:
-        print(f"kernel fused_text_layer refuses f32: {exc}")
-
-    N, L, d, heads = fused_checks[0][1]
+    N, L, d, heads = FUSED_TEXT_CHECKS[0][1]
     blk = ftl.with_kernel_layout(text_block(gen, d))
     x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
     causal = mask("causal", 1, L)[0, 0]
@@ -2350,36 +2119,18 @@ def main() -> int:
           f"{n_flops / 1e9:.2f} GFLOP); kernel a call / bound "
           f"{fused_times['ms'] / fused_bound_ms:.1f}", flush=True)
     # its launch plan at the phase-3 shapes, and what ptxas said of its source
-    for _, shape in fused_checks:
+    for _, shape in FUSED_TEXT_CHECKS:
         print(f"plan fused_text_layer {shape[:3]} {shape[3]} heads: {ftl.launch_plan(*shape)}",
               flush=True)
     for ln in logs.get("fused_text_layer", "").splitlines():
         if any(w in ln for w in ("registers", "spill", "smem")):
             print(f"  ptxas fused_text_layer.cu: {ln.split(':', 1)[-1].strip()}")
 
-    # the fused rect halves: each against its plain version, element by
-    # element and in the mean, at the RPO eval layer, the square tower
-    # (n_kv = L), a ragged small shape and the two halves' edges; one
-    # layer's params with nonzero biases and LayerNorm parameters other
-    # than (1, 0)
-    rect_checks = [
-        ("RPO eval layer", (100, 221, 768, 12, 197)),
-        ("square tower, n_kv = L", (100, 197, 768, 12, 197)),
-        ("ragged small", (3, 37, 256, 4, 29)),
-        # the MLP half's GEMM edges: one row past a 128-row tile; d = 64,
-        # where proj's N fills half a 128-column block
-        ("129 rows", (3, 43, 768, 12, 40)),
-        ("d 64", (2, 64, 64, 1, 50)),
-        # the attention half's edges: L 13, four (b, h) a block of the
-        # attention, the last block ragged; n_kv 256, its widest score row
-        ("L 13", (3, 13, 128, 2, 9)),
-        ("n_kv 256", (2, 257, 128, 2, 256)),
-    ]
-    # each half's launches at each shape (the wrapper's plans, which the CPU
-    # tests hold to the source's constants), and what ptxas said of the
-    # halves' kernels
+    # the fused rect halves: each half's launches at each shape (the
+    # wrapper's plans, which the CPU tests hold to the source's constants),
+    # and what ptxas said of the halves' kernels
     plans = {}
-    for label, (B, L, d, heads, n_kv) in rect_checks:
+    for label, (B, L, d, heads, n_kv) in RECT_HALF_CHECKS:
         plans[label] = {"fused_rect_attn_half": frl.attn_launch_plan(B, L, d, heads, n_kv),
                         "fused_mlp_half": frl.mlp_launch_plan(B * L, d)}
         for what, plan in plans[label].items():
@@ -2391,68 +2142,6 @@ def main() -> int:
         elif any(w in kernel_name for w in ("fused_mlp_half", "fused_rect_attn_half")) and any(
                 w in ln for w in ("registers", "spill", "smem")):
             print(f"  ptxas fused_rect_layer.cu {kernel_name}: {ln.split(':', 1)[-1].strip()}")
-    rect_half_err = {}
-    for label, (B, L, d, heads, n_kv) in rect_checks:
-        raw = text_block(gen, d)
-        blk = ftl.with_kernel_layout(raw)
-        x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
-        with torch.no_grad():
-            halves = {
-                "fused_rect_attn_half": (
-                    frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], heads, n_kv,
-                                             kernel=blk["kernel"]),
-                    frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"], heads, n_kv),
-                    frl.fused_rect_attn_half(x, raw["ln_1"], raw["attn"], heads, n_kv)),
-                "fused_mlp_half": (
-                    frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"], kernel=blk["kernel"]),
-                    frl.fused_mlp_half_reference(x, blk["ln_2"], blk["mlp"]),
-                    frl.fused_mlp_half(x, raw["ln_2"], raw["mlp"])),
-            }
-        torch.cuda.synchronize()
-        for what, (out, ref, per_launch) in halves.items():
-            err, mean, worst = fused_errors(out, ref)
-            same = torch.equal(out, per_launch)
-            ok = worst <= 1 and mean <= FUSED_MEAN_TOL and same and bool(torch.isfinite(out).all())
-            print(f"kernel {what} {label} {(B, L, d)} n_kv {n_kv} {heads} heads bf16: max_abs_err "
-                  f"{err:.3e}, max err / tol {worst:.3f} (tol {BF16_TOL:g} x max(|plain|, 1) "
-                  f"each), mean {mean:.3e} (tol {FUSED_MEAN_TOL:g}); per-launch layout gives the "
-                  f"same output: {same} {'ok' if ok else 'FAIL'}", flush=True)
-            if not ok:
-                fail(f"{what} {label}: max err / tol {worst}, mean {mean}, same {same}")
-            rect_half_err.setdefault(what, err)
-        if label == rect_checks[0][0]:
-            # the bounds catch a dropped bias: the plain versions without
-            # out_b and without proj_b
-            no_out_b = {**blk["attn"], "out_b": torch.zeros_like(blk["attn"]["out_b"])}
-            no_proj_b = {**blk["mlp"], "proj_b": torch.zeros_like(blk["mlp"]["proj_b"])}
-            with torch.no_grad():
-                dropped = {
-                    "fused_rect_attn_half without out_b": fused_errors(
-                        halves["fused_rect_attn_half"][0], frl.fused_rect_attn_half_reference(
-                            x, blk["ln_1"], no_out_b, heads, n_kv)),
-                    "fused_mlp_half without proj_b": fused_errors(
-                        halves["fused_mlp_half"][0],
-                        frl.fused_mlp_half_reference(x, blk["ln_2"], no_proj_b)),
-                }
-            for what, (_, mean_nb, worst_nb) in dropped.items():
-                if worst_nb <= 1 and mean_nb <= FUSED_MEAN_TOL:
-                    fail(f"the bounds pass the plain version of {what}")
-                print(f"kernel {what.split()[0]} {label}: against the plain version "
-                      f"{' '.join(what.split()[1:])} (std 0.02) mean {mean_nb:.3e}, max err / tol "
-                      f"{worst_nb:.3f}: caught", flush=True)
-        del halves
-    try:
-        with torch.no_grad():
-            frl.fused_rect_attn_half(x.float(), blk["ln_1"], blk["attn"], heads, n_kv)
-        fail("fused_rect_attn_half took f32 input")
-    except TypeError as exc:
-        print(f"kernel fused_rect_attn_half refuses f32: {exc}")
-    try:
-        frl.fused_mlp_half(x.clone().requires_grad_(True), blk["ln_2"], blk["mlp"])
-        fail("fused_mlp_half ran on an input that requires grad")
-    except RuntimeError as exc:
-        print(f"kernel fused_mlp_half refuses a grad-enabled input: {exc}")
-
     # timing at the RPO eval layer and the square tower, beside the plain
     # versions and the unfused port path on the card (layer_norm, the
     # projections on cuBLAS, the rect kernel, the residual adds), a yardstick
@@ -2460,7 +2149,7 @@ def main() -> int:
     # half.  A call (ms), back-to-back calls and the device time, split by
     # kernel, of the half and of the unfused path
     rect_times = {}
-    for label, (B, L, d, heads, n_kv) in rect_checks[:2]:
+    for label, (B, L, d, heads, n_kv) in RECT_HALF_CHECKS[:2]:
         blk = ftl.with_kernel_layout(text_block(gen, d))
         x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
         n_x = 2 * 2 * B * L * d  # x read once, the output written once, bf16
@@ -2729,7 +2418,7 @@ def main() -> int:
     cuda_per_call = {}
     for what, counter in (("fused_rect_attn_half", "attn_half_launches"),
                           ("fused_mlp_half", "mlp_half_launches")):
-        want = plans[rect_checks[0][0]][what]["launches"]
+        want = plans[RECT_HALF_CHECKS[0][0]][what]["launches"]
         calls, kernels = getattr(frl, counter), seen.get(f"{what} kernel", 0)
         cuda_per_call[what] = kernels / calls if calls else None
         print(f"RPO fused profiled batch: {kernels} {what} kernel launches on the device over "
@@ -2878,9 +2567,14 @@ def main() -> int:
         masked_launches.update(files["masked"])
         rect_replayed.update(files["rect_replayed"])
         print(f"chip_smoke: phase 15 in {time.perf_counter() - t15:.1f} s", flush=True)
+
+        # ---- 16. the tools: kernel selftest CLI, profiler, export, bench ---
+        t16 = time.perf_counter()
+        tools_phase(run_dir, smi, selftest["total"])
+        print(f"chip_smoke: phase 16 in {time.perf_counter() - t16:.1f} s", flush=True)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    print(f"chip_smoke: phases 1-15 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",
@@ -2893,7 +2587,7 @@ def main() -> int:
         # a graph's kernels run at each replay, where no wrapper is called:
         # the launches its capture recorded times its replays, by path
         "replayed_by_path": rect_replayed,
-        "max_abs_err": rect_err,
+        "max_abs_err": first_max_abs_err(selftest, "rect_attention"),
         **rect_attn_times,
         "square_197": sq_times,
         "train_frozen_rows": train_times["train frozen rows"],
@@ -2908,7 +2602,7 @@ def main() -> int:
         "launches": sum(masked_launches.values()),
         "launches_by_path": masked_launches,
         "replayed_by_path": masked_replayed,
-        "max_abs_err": masked_err,
+        "max_abs_err": first_max_abs_err(selftest, "masked_attention"),
         **masked_times[77],
         "L24": masked_times[24],
         "L16": masked_times[16],
@@ -2921,7 +2615,7 @@ def main() -> int:
         "replaces": "rpo_tpu/ops/fused_text_layer.py:215",
         "launches": sum(fused_launches.values()),
         "launches_by_path": fused_launches,
-        "max_abs_err": fused_err,
+        "max_abs_err": first_max_abs_err(selftest, "fused_text_layer"),
         **fused_times,
         "plain_ms": fused_plain_ms,
         "bound_ms": fused_bound_ms,
@@ -2934,10 +2628,10 @@ def main() -> int:
         "replaces": f"rpo_tpu/ops/fused_rect_layer.py:{line}",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": rect_half_err[what],
-        **rect_times[what][rect_checks[0][0]],
+        "max_abs_err": first_max_abs_err(selftest, what),
+        **rect_times[what][RECT_HALF_CHECKS[0][0]],
         "library_ms": None,
-        "square_197": {**rect_times[what][rect_checks[1][0]], "library_ms": None},
+        "square_197": {**rect_times[what][RECT_HALF_CHECKS[1][0]], "library_ms": None},
         "cuda_launches_per_call": cuda_per_call[what],
     } for what, line, by_path in (("fused_rect_attn_half", 185, fused_rect_launches),
                                   ("fused_mlp_half", 225, fused_mlp_launches))]}))

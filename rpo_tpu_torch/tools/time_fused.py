@@ -54,6 +54,7 @@ import torch
 from ..ops import _build
 from ..ops import fused_rect_layer as frl
 from ..ops import fused_text_layer as ftl
+from ..ops.selftest import random_block
 from .timing import call_ms, device_ms, device_ms_by_kernel, fmt_ms, stream_ms
 
 HEADER = "fused_layer_common.cuh"
@@ -160,27 +161,11 @@ def use(libs: Dict[str, ctypes.CDLL]) -> None:
         frl._lib()
 
 
-def text_block(gen: torch.Generator, d: int) -> dict:
-    """One layer's random params, nonzero biases and LayerNorm parameters
-    other than (1, 0), as in chip_smoke.py."""
-    def normal(*shape, std):
-        return (torch.randn(*shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
-
-    return {
-        "ln_1": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
-        "attn": {"qkv_w": normal(d, 3 * d, std=d ** -0.5), "qkv_b": normal(3 * d, std=0.02),
-                 "out_w": normal(d, d, std=d ** -0.5 / 5), "out_b": normal(d, std=0.02)},
-        "ln_2": {"scale": 1 + normal(d, std=0.1), "bias": normal(d, std=0.1)},
-        "mlp": {"fc_w": normal(d, 4 * d, std=(2 * d) ** -0.5), "fc_b": normal(4 * d, std=0.02),
-                "proj_w": normal(4 * d, d, std=d ** -0.5 / 5), "proj_b": normal(d, std=0.02)},
-    }
-
-
 def shapes(gen: torch.Generator, rect: bool):
     """(label, kernel name, call, plain call) per shape; the calls run
     under torch.no_grad()."""
     for label, (N, L, d, heads) in TEXT_SHAPES:
-        blk = ftl.with_kernel_layout(text_block(gen, d))
+        blk = ftl.with_kernel_layout(random_block(gen, d))
         x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
         i = torch.arange(L, device="cuda")
         causal = torch.where(i[None, :] > i[:, None], -1e9, 0.0).float()
@@ -190,7 +175,7 @@ def shapes(gen: torch.Generator, rect: bool):
     if not rect:
         return
     B, L, d, heads, n_kv = RECT_SHAPE
-    blk = ftl.with_kernel_layout(text_block(gen, d))
+    blk = ftl.with_kernel_layout(random_block(gen, d))
     x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
     yield (f"fused_rect_attn_half {(B, L, d)} n_kv {n_kv} {heads} heads", "fused_rect_layer",
            lambda: frl.fused_rect_attn_half(x, blk["ln_1"], blk["attn"], heads, n_kv,
@@ -198,7 +183,7 @@ def shapes(gen: torch.Generator, rect: bool):
            lambda: frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"], heads, n_kv))
     for label, (B, L, d) in MLP_SHAPES:
         if d != blk["ln_2"]["scale"].shape[0]:
-            blk = ftl.with_kernel_layout(text_block(gen, d))
+            blk = ftl.with_kernel_layout(random_block(gen, d))
         x = torch.randn(B, L, d, generator=gen, device="cuda").to(torch.bfloat16)
         yield (f"fused_mlp_half {label} {(B, L, d)}", "fused_rect_layer",
                lambda x=x, b=blk: frl.fused_mlp_half(x, b["ln_2"], b["mlp"], kernel=b["kernel"]),
@@ -216,7 +201,7 @@ def phase_clocks(lib: ctypes.CDLL, smi: str) -> List[dict]:
     """The phase-clock build at the CoCoOp chunk: one reading per phase."""
     N, L, d, heads = TEXT_SHAPES[0][1]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    blk = ftl.with_kernel_layout(text_block(gen, d))
+    blk = ftl.with_kernel_layout(random_block(gen, d))
     x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
     i = torch.arange(L, device="cuda")
     causal = torch.where(i[None, :] > i[:, None], -1e9, 0.0).float()

@@ -10,6 +10,10 @@
   ``torch.profiler``: no host time at all (``device_ms_by_kernel``: the
   same by kernel name).
 
+``kernel_group`` names the group of a device operation by its kernel's
+name, as ``chip_smoke.py``'s profiles and ``tools/profile_step.py`` rank
+them.
+
 A kernel of a few microseconds reads several times apart on the three, so
 two versions are compared on one timer only, and within one process.
 """
@@ -83,3 +87,24 @@ def device_ms_by_kernel(fn: Callable[[], object], n: int) -> Optional[Dict[str, 
 
 def fmt_ms(ms: Optional[float]) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def kernel_group(name: str) -> str:
+    """The group of a device operation, by its kernel's name."""
+    n = name.lower()
+    return ("fused_text_layer kernel" if "fused_text_layer" in n
+            else "fused_rect_attn_half kernel" if "fused_rect_attn_half" in n
+            else "fused_mlp_half kernel" if "fused_mlp_half" in n
+            else "masked_attention kernel" if "attention_kernel" in n and "true" in n
+            else "rect_attention kernel" if "attention_kernel" in n
+            else "conv (cuDNN)" if any(w in n for w in ("fprop", "implicit_gemm", "cudnn",
+                                                        "winograd", "conv2d", "convolve"))
+            else "batch_norm" if "batch_norm" in n or "bn_fw" in n
+            else "pooling" if "pool" in n
+            else "matmul" if any(w in n for w in ("gemm", "cutlass", "xmma", "nvjet", "sm90"))
+            else "layer_norm" if "layer_norm" in n
+            else "softmax/reduce" if any(w in n for w in ("softmax", "reduce"))
+            else "copy/cast" if any(w in n for w in ("copy", "memcpy", "cat", "nchwtonhwc",
+                                                     "nhwctonchw"))
+            else "elementwise" if "elementwise" in n
+            else "other")

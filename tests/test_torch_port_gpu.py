@@ -722,3 +722,42 @@ def test_resolve_device_turns_reduced_precision_off():
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
+
+
+@pytest.mark.gpu
+def test_kernel_selftest_passes_every_check_on_gpu():
+    """The package's kernel selftest (``ops/selftest.py``): every check of
+    its table, each kernel at its main paths' shapes and edges against its
+    plain version, passes on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch.ops.selftest import checks, run_selftest
+
+    out = run_selftest(verbose=False)
+    failed = {n: s for n, s in out["checks"].items() if not s.startswith("ok")}
+    assert not failed
+    assert out["value"] == out["total"] == len(checks())
+    assert out["backend"] == "cuda" and out["device"] == torch.cuda.get_device_name(0)
+
+
+@pytest.mark.gpu
+def test_kernel_selftest_cli_on_gpu():
+    """``python -m rpo_tpu_torch.tools.kernel_selftest`` prints one JSON
+    line with every check passing, and exits 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from rpo_tpu_torch.ops.selftest import checks
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", "rpo_tpu_torch.tools.kernel_selftest", "--quiet"],
+                          cwd=root, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 1
+    out = json.loads(lines[0])
+    assert out["value"] == out["total"] == len(checks())

@@ -82,7 +82,16 @@ def test_entry_points_raise_without_cuda():
 def test_no_fallback_around_the_kernels():
     """On a CUDA tensor a wrapper launches its kernel or raises: no
     ``try`` in the kernel modules that could fall back to the plain
-    version."""
+    version.  The selftest (``ops/selftest.py``) catches a check's
+    exception to report it, which is its job: its handlers call nothing
+    but what records the failure, so none can route around a kernel."""
     for path in (ROOT / "rpo_tpu_torch" / "ops").glob("*.py"):
         tree = ast.parse(path.read_text())
+        if path.name == "selftest.py":
+            handlers = [n for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+            assert handlers
+            called = {getattr(c.func, "id", getattr(c.func, "attr", None))
+                      for h in handlers for c in ast.walk(h) if isinstance(c, ast.Call)}
+            assert called <= {"Reading", "type", "print_exc", "is_cuda_error"}, called
+            continue
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path.name

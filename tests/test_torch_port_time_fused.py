@@ -64,14 +64,11 @@ def test_main_checks_its_arguments_then_needs_a_card(monkeypatch):
 
 
 def test_shapes_are_chip_smokes_fused_checks():
-    import ast
-    from pathlib import Path
+    """The tool's text-layer shapes are phase 3's fused checks, which the
+    kernel selftest holds (``ops/selftest.py``)."""
+    from rpo_tpu_torch.ops.selftest import FUSED_TEXT_CHECKS
 
-    tree = ast.parse((Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text())
-    checks = next(node.value for node in ast.walk(tree) if isinstance(node, ast.Assign)
-                  and getattr(node.targets[0], "id", None) == "fused_checks")
-    assert [tuple(ast.literal_eval(e)) for e in checks.elts] == \
-        [(label, shape) for label, shape in tf.TEXT_SHAPES]
+    assert list(FUSED_TEXT_CHECKS) == [(label, shape) for label, shape in tf.TEXT_SHAPES]
 
 
 @pytest.mark.parametrize("enum,names", [("Phase", tf.PHASES), ("Extra", tf.EXTRAS)])
@@ -116,15 +113,12 @@ def test_differences_counts_elements_and_the_largest():
 
 
 def test_mlp_shapes_are_chip_smokes_rect_checks():
-    """The tool's MLP-half shapes are among phase 3's rect checks, the two
-    GEMM edges among them."""
-    import ast
-    from pathlib import Path
+    """The tool's MLP-half shapes are among phase 3's rect checks (the
+    kernel selftest's, ``ops/selftest.py``), the two GEMM edges among
+    them."""
+    from rpo_tpu_torch.ops.selftest import RECT_HALF_CHECKS
 
-    tree = ast.parse((Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text())
-    checks = next(node.value for node in ast.walk(tree) if isinstance(node, ast.Assign)
-                  and getattr(node.targets[0], "id", None) == "rect_checks")
-    smoke = {tuple(ast.literal_eval(e))[1][:3] for e in checks.elts}
+    smoke = {shape[:3] for _, shape in RECT_HALF_CHECKS}
     shapes = [shape for _, shape in tf.MLP_SHAPES]
     assert set(shapes) <= smoke
     assert (3, 43, 768) in shapes and (2, 64, 64) in shapes  # 129 rows; d = 64
