@@ -160,9 +160,10 @@ Phases, one line each (any failure exits non-zero):
               the classnames against what the tree defines, the few-shot
               cache, a second build equal (pure Python, whatever (a)
               found); (c) with a decoder, the CLI: RPO main_K24 on a
-              Caltech101 tree of 10 classes x 40 JPEGs of mixed sizes (16
-              shots of the base classes, two epochs at batch 4, the test
-              split) checked as phase 11 (launches, log contract, losses,
+              Caltech101 tree of 10 classes x 40 JPEGs of mixed sizes (its
+              split file written from a sorted listing, so that the data
+              is the same on every machine; 16 shots of the base classes,
+              two epochs at batch 4, the test split) checked as phase 11 (launches, log contract, losses,
               an eval-only reload's logits against both plain versions),
               again with INPUT.DEVICE_RESIZE 224 on a tree of the 224 x
               224 fixtures (the device augmentation as in phase 12), and
@@ -180,6 +181,26 @@ Phases, one line each (any failure exits non-zero):
               checkpoint through ``tools/export_torch_ckpt.py`` and back;
               ``tools/bench_device_preprocess.py`` for eval and train at a
               few iterations.
+ 17. multi-rank  data and tensor parallelism on one card (two ranks
+              share it over gloo, since NCCL refuses two ranks on one
+              device; NCCL runs at one rank): (a) RPO main_K24 (batch 4) under a one-rank NCCL group
+              made in this process: a dp step eagerly and as a one-step
+              graph replay whose NCCL all-reduce is captured, against the
+              single-process step (bf16 rtol/atol 1e-2), 24 rect launches a
+              step, the replay's images/s, then one replay of a five-step
+              graph (five all-reduces captured) against five
+              single-process steps; (b) two gloo ranks sharing the
+              card, dp 2: phase 4's three eval batches (50 rows a rank,
+              rect at (50, 12, 221, 197, 64)) against phase 4's logits at its
+              gate, one train step (2 rows a rank) against the
+              single-process step; (c) the same ranks at tp 2: the eval
+              with the rect kernel at (100, 6, 221, 197, 64) and the masked
+              kernel's text K/V set-up at (51, 4, 77, 77, 64), and a train
+              step, as in (b); (d) the CLI under ``torchrun --standalone
+              --nproc_per_node 1`` (NCCL, graph replays) on phase 11's run:
+              its log contract, the mesh line, an accuracy within one test
+              image of phase 11's; (e) ``python -m
+              rpo_tpu_torch.tools.dryrun_multichip --device cuda 2``.
 Then a JSON line of the kernels, the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  The ViT-B/16 backbone is drawn once
 from seed 1 and shared by the methods of phases 4-10.  Imports nothing
@@ -512,8 +533,8 @@ def graphed_train(rpo, train_batches, first_prompts, eager_losses, eager_prompts
     counted (the warm-up step and the capture) and those a profiled
     replay ran on the device (24 a step); train images/s at the median
     of N_TRAIN_TIMED replays after TRAIN_WARMUP, beside the eager step's.
-    Returns the rect launches by path and the replayed ones (captured x
-    replays)."""
+    Returns the rect launches by path, the replayed ones (captured x
+    replays) and the train images/s by step."""
     from rpo_tpu_torch.methods.step_graph import WARMUP_STEPS, batch_spec
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
@@ -577,7 +598,7 @@ def graphed_train(rpo, train_batches, first_prompts, eager_losses, eager_prompts
               f"{max(0.0, 1 - busy_ms / (med * 1e3)):.1%} of an untraced replay", flush=True)
     print(f"RPO train on {smi}, train images/s (median): " + ", ".join(
         f"{k} {v:.1f}" for k, v in rates.items()), flush=True)
-    return launches, replayed
+    return launches, replayed, rates
 
 
 def run_argv(out: str, extra=()) -> list:
@@ -1756,6 +1777,34 @@ def file_argv(out: str, trainer: str, dataset: str, config: str, root: str, extr
             "DATASET.ROOT", root, *extra]
 
 
+def fixed_caltech_split(root: str) -> None:
+    """``split_zhou_Caltech101.json`` written into the Caltech101 tree
+    under ``root`` by the reader's own split (``read_and_split_data``, seed
+    1) over a sorted listing.  The reader, as the reference's, splits and
+    labels the folders in the order the file system lists them, which
+    differs from one file system to the next: without a split file each
+    run of phase 15 trained and tested on another draw (epoch means
+    1.6111-1.6137 over four runs on the H100).  The global ``random`` state
+    is put back."""
+    import random
+
+    from rpo_tpu_torch.data import splits
+    from rpo_tpu_torch.data.datasets import caltech101
+
+    image_dir = os.path.join(root, "caltech-101", "101_ObjectCategories")
+    listdir, state = splits.listdir_nohidden, random.getstate()
+    splits.listdir_nohidden = lambda path, sort=False: listdir(path, sort=True)
+    try:
+        random.seed(1)
+        train, val, test = splits.read_and_split_data(
+            image_dir, ignored=caltech101.IGNORED, new_cnames=caltech101.NEW_CNAMES)
+    finally:
+        splits.listdir_nohidden = listdir
+        random.setstate(state)
+    splits.save_split(train, val, test, os.path.join(root, "caltech-101",
+                                                     "split_zhou_Caltech101.json"), image_dir)
+
+
 def file_dataset_runs(out: str, smi: str, probe: dict, sources, phase11: dict, n_layers: int,
                       text_layers: int) -> dict:
     """Phase 15 (c): with a JPEG decoder, the CLI on file trees.  RPO
@@ -1789,6 +1838,8 @@ def file_dataset_runs(out: str, smi: str, probe: dict, sources, phase11: dict, n
     caltech_224 = os.path.join(out, "caltech_224")
     fake_datasets.write_tree("Caltech101", caltech_224, [p for p in sources if "224x224" in p],
                              n_classes=FILE_RUN_CLASSES, per_class=FILE_RUN_PER_CLASS)
+    for root in (caltech, caltech_224):
+        fixed_caltech_split(root)
     shots = ["DATASET.NUM_SHOTS", str(RUN_SHOTS), "DATASET.SUBSAMPLE_CLASSES", "base",
              "OPTIM.MAX_EPOCH", str(RUN_EPOCHS)]
     runs = (("RPO Caltech101 run", caltech, []),
@@ -1933,6 +1984,316 @@ def tools_phase(run_dir: str, smi: str, selftest_total: int) -> None:
               f"{time.perf_counter() - t:.1f} s, exit {rc}: {line}", flush=True)
         if rc != 0 or not line.startswith("{") or json.loads(line)["value"] <= 0:
             fail(f"bench_device_preprocess --phase {what} printed no result")
+
+
+MULTI_RANK_EVAL = EVAL_BATCH  # phase 17 (b), (c): phase 4's batches, 50 rows a rank under dp 2
+MULTI_RANK_TOL = dict(rtol=1e-2, atol=1e-2)  # bf16, __graft_entry__.py:151-155
+MULTI_RANK_TIMED = 20
+
+
+def _close_step(label: str, got: dict, want: dict, first: dict, control: bool = False) -> list:
+    """A step against the single-process step on the same batch from the
+    same prompts ``first``: the loss (or a group's losses) within
+    MULTI_RANK_TOL, and each prompt tensor's update (after minus ``first``)
+    within TRAIN_GRAD_REL of the single-process update's largest entry,
+    its cosine to it >= TRAIN_GRAD_COS, as phase 10 holds a gradient.  The
+    prompts (|p| about 2e-2) move by 1e-5 to 1e-3 a step, so a bound on
+    them would pass a step that makes no update; the update's bound does
+    not.  Returns the faults, printed; a ``control`` (a step known to be
+    wrong) must show some."""
+    faults, parts = [], []
+    for key, value in want.items():
+        a, b = np.asarray(got[key], np.float64), np.asarray(value, np.float64)
+        if key in ("loss", "losses"):
+            err = float(np.abs(a - b).max())
+            ok = bool(np.all(np.abs(a - b) <= MULTI_RANK_TOL["atol"] + MULTI_RANK_TOL["rtol"] *
+                             np.abs(b)))
+            parts.append(f"{key} max_abs_err {err:.3e} (rtol/atol {MULTI_RANK_TOL['rtol']:g}) "
+                         f"{'ok' if ok else 'FAIL'}")
+        else:
+            start = np.asarray(first[key], np.float64)
+            du, dw = (a - start).ravel(), (b - start).ravel()
+            err, big = float(np.abs(du - dw).max()), float(np.abs(dw).max())
+            norms = float(np.linalg.norm(du) * np.linalg.norm(dw))
+            cos = float(du @ dw) / norms if norms else 0.0
+            rel = err / big if big else float("inf")
+            ok = bool(np.isfinite(du).all()) and rel <= TRAIN_GRAD_REL and cos >= TRAIN_GRAD_COS
+            parts.append(f"{key} update max_abs_err {err:.3e} (max|update| {big:.3e}, relative "
+                         f"{rel:.3e}, tol {TRAIN_GRAD_REL}), cosine {cos:.6f} (>= "
+                         f"{TRAIN_GRAD_COS}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            faults.append(f"{label} {key}")
+    verdict = ("" if not control else
+               f": {'caught' if faults else 'NOT caught'} ({len(faults)} of {len(want)} fail)")
+    print(f"{label} vs the single-process step{verdict}: " + "; ".join(parts), flush=True)
+    if control:
+        return [] if faults else [f"{label}: the check passes a wrong step"]
+    return faults
+
+
+def _step_numbers(trainer, loss) -> dict:
+    return {"loss": float(loss), **{k: t.detach().float().cpu().numpy().copy()
+                                    for k, t in trainer.params.items()}}
+
+
+def _multi_rank_child(rank: int, spec_path: str, out_dir: str) -> None:
+    """Phase 17 (b) and (c) on one rank of two gloo ranks sharing the card:
+    the seed-1 ViT-B/16 drawn as phase 4 draws it, then RPO under dp 2 and
+    under tp 2: phase 4's eval batches (this rank's rows, the logits
+    gathered) and one train step from the first prompts, the kernel
+    launches counted."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from rpo_tpu_torch.methods.rpo_trainer import RPO
+    from rpo_tpu_torch.models.clip.model import ARCHS, cast_params, init_clip
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.parallel import dp
+
+    spec = torch.load(spec_path, weights_only=False)
+    clip = cast_params(init_clip(torch.Generator(device="cuda").manual_seed(1),
+                                 ARCHS["ViT-B/16"]), torch.bfloat16)
+    out = {"clip_sum": float(clip["visual"]["proj"].float().sum())}
+    for tp in (0, 2):
+        ra.launches = ma.launches = 0
+        rpo = RPO(spec["classnames"], K=K, backbone="ViT-B/16", prec="fp16", seed=1,
+                  clip_params=clip, device="cuda", tensor_parallel=tp)
+        setup_masked = ma.launches
+        shapes = []
+
+        def recording(q, k, v):
+            shapes.append((q.shape[0], q.shape[1], q.shape[2], k.shape[2], q.shape[3]))
+            return ra.rect_attention(q, k, v)
+
+        a, b = dp.local_rows(MULTI_RANK_EVAL, rpo.mesh)
+        rpo.text_features()
+        ra.launches = ma.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = [rpo.eval_step(images[a:b], rect_attn=recording) for images in spec["images"]]
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_launches = (ra.launches, ma.launches)
+        rpo.set_ckpt_state(rpo.model_name, spec["first_prompts"])
+        ra.launches = ma.launches = 0
+        eval_shapes, shapes = sorted(set(shapes)), []
+        loss, _ = dp.shard_train_step(rpo.train_step, rpo.mesh)(*spec["train_batch"], TRAIN_LR,
+                                                                rect_attn=recording)
+        torch.cuda.synchronize()
+        out[tp] = {"mesh": dict(rpo.mesh.shape), "backend": rpo.mesh.backend,
+                   "setup_masked": setup_masked,
+                   "text_kv_heads": int(rpo._frozen["text_kv"]["k"].shape[2]),
+                   "logits": [t.float().cpu() for t in logits], "eval_launches": eval_launches,
+                   "eval_shapes": eval_shapes, "eval_s": eval_s,
+                   "train_launches": (ra.launches, ma.launches),
+                   "train_shapes": sorted(set(shapes)),
+                   "step": _step_numbers(rpo, loss)}
+        del rpo
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def multi_rank_phase(run_dir: str, smi: str, clip, classnames, batches, train_batches,
+                     first_prompts, phase4_logits: list, phase10_graph_rate: float,
+                     phase11_log: str, n_layers: int, text_layers: int) -> dict:
+    """Phase 17: the data- and tensor-parallel paths on the one card.
+    (a) RPO under a one-rank NCCL group (made here over a FileStore): a dp
+    step eager and as a one-step graph replay against the single-process
+    step, 24 rect launches a step, the replay's images/s beside phase 10's
+    one-step graph's, a five-step graph against five single-process steps;
+    every step is held by its update (``_close_step``), whose check two
+    wrong steps must fail: one that makes no update and one on rank 0's
+    rows alone (a dp 2 step without its all-reduce); (b) two gloo
+    ranks on the card, dp 2: phase 4's three eval batches of 100 (50 rows
+    a rank each) against phase 4's logits at its gate, one train step at
+    batch 4 (2 rows a rank) against the single-process step; (c) the same
+    two ranks at tp 2 (6 vision and 4 text heads a rank); (d) the CLI under ``torchrun --nproc_per_node
+    1`` (NCCL, graph replays) on phase 11's run; (e) ``dryrun_multichip
+    --device cuda 2``.  Returns the launches by path."""
+    import torch.distributed as dist
+
+    from rpo_tpu_torch.methods.rpo_trainer import RPO
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.tools.dryrun_multichip import spawn_world
+
+    faults = []
+    rect, masked = {}, {}
+    batch0 = train_batches[0]
+    # the single-process step every multi-rank step is held to
+    single = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1,
+                 clip_params=clip)
+    single.set_ckpt_state(single.model_name, first_prompts)
+    want = _step_numbers(single, single.train_step(*batch0, TRAIN_LR)[0])
+    group_losses = [want["loss"]] + [float(single.train_step(*b, TRAIN_LR)[0])
+                                     for b in train_batches[1:GRAPH_GROUP]]
+    want_group = {"losses": group_losses, **{k: v for k, v in _step_numbers(
+        single, group_losses[-1]).items() if k != "loss"}}
+    first = {k: t.float().cpu().numpy() for k, t in first_prompts.items()}
+    single.set_ckpt_state(single.model_name, first_prompts)
+    half = _step_numbers(single, single.train_step(*(t[:TRAIN_BATCH // 2] for t in batch0),
+                                                   TRAIN_LR)[0])
+    del single
+    faults += _close_step("multi-rank control: a step that makes no update",
+                          {"loss": want["loss"], **first}, want, first, control=True)
+    faults += _close_step(f"multi-rank control: a step on rows 0-{TRAIN_BATCH // 2 - 1} alone "
+                          "(rank 0's rows of dp 2, no all-reduce)", half, want, first,
+                          control=True)
+
+    # (a) NCCL at world size 1, in this process
+    t0 = time.perf_counter()
+    store_dir = tempfile.mkdtemp(prefix="nccl_store_", dir=run_dir)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        rpo = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1,
+                  clip_params=clip)
+        mesh = rpo.mesh
+        if mesh is None or mesh.backend != "nccl" or mesh.world != 1 or rpo._eager_steps:
+            fail(f"multi-rank (a): the trainer's mesh is {mesh}, steps eager {rpo._eager_steps}")
+        rpo.set_ckpt_state(rpo.model_name, first_prompts)
+        ra.launches = ma.launches = 0
+        eager = _step_numbers(rpo, rpo.train_step(*batch0, TRAIN_LR)[0])
+        torch.cuda.synchronize()
+        rect["multi-rank (a) NCCL world 1, dp step eager"] = ra.launches
+        if ra.launches != 2 * n_layers or ma.launches:
+            faults.append(f"(a) eager step launched {ra.launches} rect, {ma.launches} masked")
+        faults += _close_step("multi-rank (a) NCCL world 1 dp step, eager", eager, want, first)
+        rpo.set_ckpt_state(rpo.model_name, first_prompts)
+        rpo.current_lr = TRAIN_LR
+        ra.launches = 0
+        batch = {"img": batch0[0], "label": batch0[1], "mask": batch0[2]}
+        graphed = _step_numbers(rpo, rpo.forward_backward(batch)["loss"])
+        torch.cuda.synchronize()
+        rect["multi-rank (a) NCCL world 1, one-step graph (warm-up + capture)"] = ra.launches
+        if ra.launches != 2 * 2 * n_layers:
+            faults.append(f"(a) graph: {ra.launches} rect launches for its warm-up and capture")
+        faults += _close_step("multi-rank (a) NCCL world 1 dp step, one-step graph replay "
+                              "(NCCL all-reduce captured)", graphed, want, first)
+        same = all(np.array_equal(graphed[k], eager[k]) for k in eager)
+        print(f"multi-rank (a): the replay {'torch.equal' if same else 'NOT equal'} to the "
+              f"eager dp step", flush=True)
+        # STEPS_PER_DISPATCH: the all-reduces of GRAPH_GROUP steps in one graph
+        rpo.set_ckpt_state(rpo.model_name, first_prompts)
+        ra.launches = 0
+        summaries = rpo.forward_backward_multi([
+            {"img": b[0], "label": b[1], "mask": b[2]} for b in train_batches[:GRAPH_GROUP]])
+        torch.cuda.synchronize()
+        rect[f"multi-rank (a) NCCL world 1, {GRAPH_GROUP}-step graph (warm-up + capture)"] = \
+            ra.launches
+        if ra.launches != 2 * n_layers * (1 + GRAPH_GROUP):
+            faults.append(f"(a) {GRAPH_GROUP}-step graph: {ra.launches} rect launches")
+        got_group = {"losses": [float(x["loss"]) for x in summaries],
+                     **{k: v for k, v in _step_numbers(rpo, 0.0).items() if k != "loss"}}
+        faults += _close_step(f"multi-rank (a) NCCL world 1, one replay of the {GRAPH_GROUP}-"
+                              f"step graph ({GRAPH_GROUP} all-reduces captured), {GRAPH_GROUP} "
+                              "steps' losses and the prompts' update over them", got_group,
+                              want_group, first)
+        step_s = []
+        for i in range(TRAIN_WARMUP + MULTI_RANK_TIMED):
+            b = train_batches[1 + i % (len(train_batches) - 1)]
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            rpo.forward_backward({"img": b[0], "label": b[1], "mask": b[2]})
+            torch.cuda.synchronize()
+            if i >= TRAIN_WARMUP:
+                step_s.append(time.perf_counter() - t)
+        rate = TRAIN_BATCH / statistics.median(step_s)
+        print(f"multi-rank (a) on {smi}: NCCL world 1 one-step graph, {rate:.1f} train images/s "
+              f"at the median of {MULTI_RANK_TIMED} replays, beside phase 10's one-step graph "
+              f"without a process group {phase10_graph_rate:.1f} (a card number of this call, "
+              "no claim)", flush=True)
+        del rpo
+    finally:
+        dist.destroy_process_group()
+    print(f"chip_smoke: phase 17 (a) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b), (c): two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    child_dir = tempfile.mkdtemp(prefix="multi_rank_", dir=run_dir)
+    spec_path = os.path.join(child_dir, "spec.pt")
+    torch.save({"classnames": classnames, "images": batches, "train_batch": batch0,
+                "first_prompts": {k: t.float().cpu() for k, t in first_prompts.items()}},
+               spec_path)
+    spawn_world(2, _multi_rank_child, (spec_path, child_dir), child_dir, device="cuda")
+    ranks = [torch.load(os.path.join(child_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    clip_sum = float(clip["visual"]["proj"].float().sum())
+    if any(r["clip_sum"] != clip_sum for r in ranks):
+        fail("multi-rank (b): a rank drew another seed-1 ViT-B/16 than this process")
+    for tp, label, eval_shape, heads in (
+            (0, "(b) gloo dp 2", (50, 12, 221, 197, 64), 8),
+            (2, "(c) gloo tp 2", (100, 6, 221, 197, 64), 4)):
+        rows, h = TRAIN_BATCH // (2 if tp == 0 else 1), eval_shape[1]
+        train_shapes = [(rows, h, K, 197, 64), (rows, h, 197, 197, 64)]
+        for r, res in enumerate(ranks):
+            res = res[tp]
+            name = f"multi-rank {label} rank {r}"
+            print(f"{name}: mesh {res['mesh']} over {res['backend']}; set-up masked launches "
+                  f"{res['setup_masked']} (text K/V of ({len(classnames)}, {res['text_kv_heads']}"
+                  f", 77, 77, 64)); {len(batches)} eval batches: rect launches "
+                  f"{res['eval_launches'][0]} at "
+                  f"{res['eval_shapes']}, {res['eval_s']:.3f} s; train step at batch "
+                  f"{TRAIN_BATCH}: rect {res['train_launches'][0]} at {res['train_shapes']}, "
+                  f"masked {res['train_launches'][1]}", flush=True)
+            ok = (res["setup_masked"] == text_layers and res["text_kv_heads"] == heads and
+                  res["eval_launches"] == (n_layers * len(batches), 0) and
+                  res["eval_shapes"] == [eval_shape] and
+                  res["train_launches"] == (2 * n_layers, 0) and
+                  res["train_shapes"] == train_shapes)
+            if not ok:
+                faults.append(f"{name}: launches or shapes")
+            rect[f"multi-rank {label} rank {r}, {len(batches)} eval batches"] = \
+                res["eval_launches"][0]
+            rect[f"multi-rank {label} rank {r}, train step"] = res["train_launches"][0]
+            masked[f"multi-rank {label} rank {r}, set-up"] = res["setup_masked"]
+            if not check_logits(f"slice {name} eval, {len(batches)} batches of {MULTI_RANK_EVAL}",
+                                [t.cuda() for t in res["logits"]], phase4_logits,
+                                against="phase 4's single-process logits", stop=False):
+                faults.append(f"{name} logits")
+            faults += _close_step(f"{name} train step", res["step"], want, first)
+    print(f"chip_smoke: phase 17 (b), (c) in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (d) the CLI through torchrun, one rank: NCCL, the engine's graph replays
+    t0 = time.perf_counter()
+    out = os.path.join(run_dir, "torchrun")
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "rpo_tpu_torch.cli", *run_argv(out)],
+        capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    log = open(os.path.join(out, "log.txt")).read() if os.path.exists(
+        os.path.join(out, "log.txt")) else ""
+    correct = [int(m) for m in re.findall(r"\* correct: ([\d,]+)", log.replace(",", ""))]
+    want_correct = [int(m) for m in re.findall(r"\* correct: ([\d,]+)",
+                                               phase11_log.replace(",", ""))]
+    ok = (proc.returncode == 0 and "Finish training" in log and "* accuracy:" in log and
+          "data-parallel mesh over nccl" in log and
+          "Captured the train step as CUDA graph(s)" in log and
+          os.path.exists(os.path.join(out, "prompt_learner", "model.pth.tar-2")) and
+          len(correct) == 1 and len(want_correct) == 1 and
+          abs(correct[0] - want_correct[0]) <= 1)
+    print(f"multi-rank (d) torchrun --nproc_per_node 1 -m rpo_tpu_torch.cli (main_K24, "
+          f"Synthetic, {RUN_EPOCHS} epochs): exit {proc.returncode}; the log contract, the "
+          f"data-parallel mesh line over nccl, the graph capture, the checkpoint; correct "
+          f"{correct} against phase 11's {want_correct} (within one test image) "
+          f"{'ok' if ok else 'FAIL'} in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        print(proc.stdout[-3000:], proc.stderr[-3000:], flush=True)
+        faults.append("(d) the CLI under torchrun")
+
+    # (e) the dry run on two gloo ranks sharing the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "rpo_tpu_torch.tools.dryrun_multichip", "--device", "cuda", "2"],
+        capture_output=True, text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"multi-rank (e) dryrun_multichip --device cuda 2: exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s: {last[:1500]}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:], flush=True)
+        faults.append("(e) dryrun_multichip")
+    if faults:
+        fail(f"phase 17: {'; '.join(faults)}")
+    return {"rect": rect, "masked": masked}
 
 
 def main() -> int:
@@ -2523,7 +2884,7 @@ def main() -> int:
     profile_eval_step(lambda batch: rpo.train_step(*batch, TRAIN_LR), train_batches[-1], smi,
                       "RPO", "train step")
     phase10_rate = TRAIN_BATCH / statistics.median(step_s)
-    graph_launches, rect_replayed = graphed_train(rpo, train_batches, first_prompts, eager_losses,
+    graph_launches, rect_replayed, phase10_rates = graphed_train(rpo, train_batches, first_prompts, eager_losses,
                                                   eager_prompts, phase10_rate, smi, n_layers)
     rect_launches.update(graph_launches)
     del rpo
@@ -2572,9 +2933,18 @@ def main() -> int:
         t16 = time.perf_counter()
         tools_phase(run_dir, smi, selftest["total"])
         print(f"chip_smoke: phase 16 in {time.perf_counter() - t16:.1f} s", flush=True)
+
+        # ---- 17. data and tensor parallelism on the one card -----------------
+        t17 = time.perf_counter()
+        multi = multi_rank_phase(run_dir, smi, clip, classnames, batches, train_batches,
+                                 first_prompts, rpo_rect_logits, phase10_rates["1-step graph"],
+                                 phase11["log"], n_layers, text_layers)
+        rect_launches.update(multi["rect"])
+        masked_launches.update(multi["masked"])
+        print(f"chip_smoke: phase 17 in {time.perf_counter() - t17:.1f} s", flush=True)
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
-    print(f"chip_smoke: phases 1-16 in {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-17 in {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "rect_attention",

@@ -8,6 +8,19 @@ package's (``rpo_tpu/cli.py``, the reference's train.py):
 
 It runs on the CUDA card, and raises without one.  ``RPO_TPU_FORCE_CPU=1``
 (the JAX CLI's switch) asks for the CPU instead.
+
+One process drives one card.  To use several, launch one rank a card:
+
+    torchrun --standalone --nproc_per_node N -m rpo_tpu_torch.cli ...
+
+torchrun's environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``; set at 1
+too by ``--nproc_per_node 1``) makes the CLI start the process group, NCCL
+on cards and gloo on the CPU, and destroy it at exit; each rank takes
+``cuda:$LOCAL_RANK`` and its rows of every batch (``parallel/dp.py``),
+and TRAIN.TENSOR_PARALLEL splits the ranks into a dp x tp grid.  Rank 0
+alone writes ``log.txt``, the checkpoints and the result lines.  The JAX
+CLI takes every visible device on its own; without torchrun this CLI
+uses one card and says how to use the rest.
 """
 from __future__ import annotations
 
@@ -19,6 +32,7 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # registry side effects: the trainers and datasets the engine can name
 import rpo_tpu_torch.data.datasets  # noqa: F401
@@ -89,20 +103,57 @@ def collect_env_info(device: torch.device) -> str:
     ]
     if device.type == "cuda":
         lines.append(f"Card: {torch.cuda.get_device_name(device)}")
+    if dist.is_initialized():
+        lines.append(f"Process group: {dist.get_world_size()} rank(s), {dist.get_backend()}")
     return "\n".join(lines)
+
+
+def init_distributed() -> bool:
+    """The process group from torchrun's environment (NCCL on cards, gloo
+    on the CPU), each rank on its own card; False without torchrun, or
+    when a group is already up (its owner destroys it)."""
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return False
+    on_cpu = bool(os.environ.get("RPO_TPU_FORCE_CPU")) or not torch.cuda.is_available()
+    if not on_cpu:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("gloo" if on_cpu else "nccl")
+    return True
 
 
 def main(args, **build_kwargs):
     """Run the CLI on parsed ``args``; returns the trainer.  ``build_kwargs``
     go to the trainer's build (``clip_params=`` replaces the random
-    backbone)."""
+    backbone).  Under torchrun it starts the process group and destroys
+    it at the end, after every rank has finished."""
+    started = init_distributed()
+    stdout = sys.stdout
+    try:
+        if dist.is_initialized() and dist.get_rank() > 0:
+            sys.stdout = open(os.devnull, "w")  # rank 0 alone prints and logs
+        return _main(args, **build_kwargs)
+    finally:
+        if sys.stdout is not stdout and dist.is_initialized() and dist.get_rank() > 0:
+            sys.stdout.close()
+            sys.stdout = stdout
+        if started:
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _main(args, **build_kwargs):
     device = resolve_device("cpu" if os.environ.get("RPO_TPU_FORCE_CPU") else None)
+    if not dist.is_initialized() and device.type == "cuda" and torch.cuda.device_count() > 1:
+        print(f"{torch.cuda.device_count()} CUDA cards are visible and this process uses one; "
+              "to use them all, launch one rank a card: torchrun --standalone "
+              f"--nproc_per_node {torch.cuda.device_count()} -m rpo_tpu_torch.cli ...")
     cfg = setup_cfg(args)
     if cfg.SEED >= 0:
         print(f"Setting fixed seed: {cfg.SEED}")
         set_random_seed(cfg.SEED)
 
-    setup_logger(cfg.OUTPUT_DIR)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        setup_logger(cfg.OUTPUT_DIR)
 
     print_args(args, cfg)
     print("Collecting env info ...")

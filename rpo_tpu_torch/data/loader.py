@@ -6,10 +6,16 @@ prefetch queue lets the host prepare the next batches while the device
 computes.
 
 Batches are dicts {"img": (B, H, W, 3) uint8, "label": (B,) int32,
-"mask": (B,) float32, "n": int} where B is always the batch size: the
-final partial batch is zero-padded and flagged by ``mask``, so every step
-sees one shape.  (Padding to a multiple of several cards waits for the
-multi-GPU port.)
+"mask": (B,) float32, "n": int} where B is always ``pad_to`` (the batch
+size, or the next multiple of the data ranks: ``dp.pad_multiple``): the
+final partial batch and the rows past the batch size are zero-padded and
+flagged by ``mask``, so every step sees one shape.  ``n`` counts the real
+rows of the whole batch.
+
+Under a data mesh each rank's loader is given its ``rows`` [a, b) of the
+padded batch: it draws every row's augmentation plan, as every rank does,
+and decodes only its own rows, so the ranks' batches concatenate to the
+JAX package's padded global batch and no rank decodes another's images.
 
 Seeded determinism, as in the JAX package: an epoch draws from Python's
 global ``random`` on the consumer thread only, the shuffle and then one
@@ -34,7 +40,7 @@ import queue
 import random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterator, List, Sequence
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,10 +61,17 @@ class BatchLoader:
         shuffle: bool,
         num_workers: int = 8,
         drop_last: bool = False,
+        pad_to: Optional[int] = None,
+        rows: Optional[Tuple[int, int]] = None,
     ):
         self.items = list(items)
         self.transform = transform
         self.batch_size = int(batch_size)
+        self.pad_to = int(pad_to) if pad_to else self.batch_size
+        if self.pad_to < self.batch_size:
+            raise ValueError(f"pad_to {self.pad_to} is below the batch size {self.batch_size}")
+        # this rank's rows of the padded batch (all of them on one process)
+        self.rows = tuple(rows) if rows is not None else (0, self.pad_to)
         # Dassl drops the final partial TRAIN batch (when the dataset has
         # at least one full batch): the reference's step count
         self.drop_last = bool(drop_last) and len(self.items) >= self.batch_size
@@ -72,22 +85,28 @@ class BatchLoader:
             return len(self.items) // self.batch_size
         return (len(self.items) + self.batch_size - 1) // self.batch_size
 
+    def _mine(self, batch_items: List[Datum], plans=None):
+        """This rank's items of the batch (and their plans): those of its
+        rows that are not padding."""
+        a, b = self.rows
+        items = batch_items[a:b]
+        return items, (plans[a:b] if plans is not None else None)
+
     def _make_batch(self, batch_items: List[Datum], rng=None) -> Dict[str, np.ndarray]:
         if self.train and getattr(self.transform, "device_resize", 0):
             return self._make_device_augment_batch(batch_items, rng=rng)
-        imgs = self._native_eval_batch(batch_items)
+        # the plans are drawn here, for every row of the batch in item
+        # order, from the private per-epoch rng, whichever rows this rank
+        # decodes; the native pool or the thread pool only decodes and
+        # resizes.  Eval batches draw none (make_plan(train=False) is None)
+        # and never reach the native train entry point
+        has_plan = self.train and hasattr(self.transform, "make_plan")
+        plans = [self.transform.make_plan(it.impath, True, rng=rng) if has_plan else None
+                 for it in batch_items]
+        items, plans = self._mine(batch_items, plans)
+        imgs = self._native_eval_batch(items) if items else []
         if imgs is None:
-            # the plans are drawn here, in item order, from the private
-            # per-epoch rng; the native pool or the thread pool only
-            # decodes and resizes.  Eval batches draw none
-            # (make_plan(train=False) is None) and never reach the native
-            # train entry point
-            has_plan = self.train and hasattr(self.transform, "make_plan")
-            plans = [self.transform.make_plan(it.impath, True, rng=rng) if has_plan else None
-                     for it in batch_items]
-            imgs = self._native_train_batch(batch_items, plans) if has_plan else None
-        else:
-            plans, has_plan = [None] * len(batch_items), False
+            imgs = self._native_train_batch(items, plans) if has_plan else None
         if imgs is None:
 
             def apply(item_plan):
@@ -96,16 +115,35 @@ class BatchLoader:
                     return self.transform(item.impath, self.train, plan=plan)
                 return self.transform(item.impath, self.train)
 
-            imgs = list(self.pool.map(apply, zip(batch_items, plans)))
-        B = self.batch_size
-        out_img = np.zeros((B,) + imgs[0].shape, dtype=imgs[0].dtype)
-        out_lab = np.zeros((B,), dtype=np.int32)
-        out_mask = np.zeros((B,), dtype=np.float32)
-        for i, (im, it) in enumerate(zip(imgs, batch_items)):
+            imgs = list(self.pool.map(apply, zip(items, plans)))
+        a, b = self.rows
+        shape = imgs[0].shape if imgs else self._image_shape()
+        out_img = np.zeros((b - a,) + tuple(shape), dtype=np.uint8)
+        out_lab = np.zeros((b - a,), dtype=np.int32)
+        out_mask = np.zeros((b - a,), dtype=np.float32)
+        for i, (im, it) in enumerate(zip(imgs, items)):
             out_img[i] = im
             out_lab[i] = it.label
             out_mask[i] = 1.0
-        return {"img": out_img, "label": out_lab, "mask": out_mask, "n": len(batch_items)}
+        return self._with_all_labels(
+            {"img": out_img, "label": out_lab, "mask": out_mask, "n": len(batch_items)},
+            batch_items)
+
+    def _with_all_labels(self, batch: dict, batch_items: List[Datum]) -> dict:
+        """A rank's batch with ``all_label``, the labels of the whole padded
+        batch (no decode needed), which the evaluator reads beside the
+        gathered logits; a whole batch has them in ``label``."""
+        if self.rows != (0, self.pad_to):
+            labels = np.zeros((self.pad_to,), np.int32)
+            labels[:len(batch_items)] = [it.label for it in batch_items]
+            batch["all_label"] = labels
+        return batch
+
+    def _image_shape(self) -> Tuple[int, int, int]:
+        """The shape of a decoded image, for a rank whose rows are all
+        padding: the model's size, or the device-resize sources'."""
+        side = getattr(self.transform, "device_resize", 0) or self.transform.size
+        return (side, side, 3)
 
     def _make_device_augment_batch(self, batch_items: List[Datum],
                                    rng=None) -> Dict[str, np.ndarray]:
@@ -119,20 +157,24 @@ class BatchLoader:
         crop plan and padding rows."""
         tp = self.transform
         S = tp.device_resize
-        # one header read an image: the size feeds the plan and the check
+        # one header read an image of the batch: the size feeds the plan
+        # (every row's, in item order) and the check
         sizes = [tp.image_size(it.impath) for it in batch_items]
         plans = [tp.make_plan(it.impath, True, size=sz, rng=rng)
                  for it, sz in zip(batch_items, sizes)]
+        n, (a, b) = len(batch_items), self.rows
+        all_items = batch_items
+        batch_items, plans, sizes = batch_items[a:b], plans[a:b], sizes[a:b]
         exact = [sz == (S, S) for sz in sizes]
         # all sources exact: the native batch decode (at size S its eval
         # entry point is raw_source), else the thread pool
-        imgs = self._native_fixed_batch(batch_items, S) if all(exact) else None
+        imgs = self._native_fixed_batch(batch_items, S) if batch_items and all(exact) else None
         if imgs is None:
             host_boxes = [None if (ex or plan is None) else plan[0]
                           for ex, plan in zip(exact, plans)]
             imgs = list(self.pool.map(lambda ib: tp.raw_source(ib[0].impath, box=ib[1]),
                                       zip(batch_items, host_boxes)))
-        B = self.batch_size
+        B = b - a
         out_img = np.zeros((B, S, S, 3), np.uint8)
         out_lab = np.zeros((B,), np.int32)
         out_mask = np.zeros((B,), np.float32)
@@ -147,8 +189,8 @@ class BatchLoader:
                 if box is not None and exact[i]:
                     out_box[i] = box
                 out_flip[i] = 1 if flip else 0
-        return {"img": out_img, "label": out_lab, "mask": out_mask, "n": len(batch_items),
-                "box": out_box, "flip": out_flip}
+        return self._with_all_labels({"img": out_img, "label": out_lab, "mask": out_mask,
+                                      "n": n, "box": out_box, "flip": out_flip}, all_items)
 
     def _native_train_batch(self, batch_items: List[Datum], plans):
         """A train batch of JPEGs decoded, cropped, resized and flipped by

@@ -1,6 +1,13 @@
-"""Device selection: the port runs on the CUDA card unless told otherwise."""
+"""Device selection: the port runs on the CUDA card unless told otherwise.
+
+One process drives one card.  Under a process group (``torchrun``, one
+rank a card) a rank's card is ``cuda:$LOCAL_RANK``; a lone process takes
+the current card, ``cuda`` (card 0 unless ``torch.cuda.set_device`` said
+otherwise).
+"""
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -28,11 +35,14 @@ def no_tf32_no_bf16_reduction() -> None:
 def resolve_device(device: DeviceLike = None) -> torch.device:
     """The device an entry point runs on.
 
-    ``None`` means the CUDA card.  Without one this raises rather than
-    carrying on quietly on the CPU: a caller who wants the CPU (the tests,
-    which hold the port against the JAX package there) passes
-    ``device="cpu"``.  A CUDA device turns TF32 and cuBLAS's
-    reduced-precision bfloat16 reduction off (``no_tf32_no_bf16_reduction``).
+    ``None`` means the CUDA card: ``cuda:$LOCAL_RANK`` under an initialised
+    process group (each rank its own card, made the current one, so that
+    NCCL and the kernels' launches go there), ``cuda`` otherwise.  Without
+    a card this raises rather than carrying on quietly on the CPU: a
+    caller who wants the CPU (the tests, which hold the port against the
+    JAX package there) passes ``device="cpu"``.  A CUDA device turns TF32
+    and cuBLAS's reduced-precision bfloat16 reduction off
+    (``no_tf32_no_bf16_reduction``).
     """
     if device is None:
         if not torch.cuda.is_available():
@@ -40,7 +50,16 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "no CUDA device is available; pass device='cpu' to run on the CPU"
             )
         device = "cuda"
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            if local >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"LOCAL_RANK {local} but only {torch.cuda.device_count()} CUDA card(s) are "
+                    "visible: launch one rank a card")
+            device = f"cuda:{local}"
     device = torch.device(device)
     if device.type == "cuda":
+        if device.index is not None:
+            torch.cuda.set_device(device)
         no_tf32_no_bf16_reduction()
     return device

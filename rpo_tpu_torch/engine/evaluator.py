@@ -1,6 +1,7 @@
 """Classification evaluator with the Dassl log-format contract.
 
-A copy of ``rpo_tpu/engine/evaluator.py`` (numpy only).  The printed
+A copy of ``rpo_tpu/engine/evaluator.py`` (numpy only); under a process
+group rank 0 alone writes the confusion matrix.  The printed
 block is a public API: ``parse_test_res.py`` regex-scrapes
 ``* accuracy: X%`` lines after an ``=> result`` marker.
 """
@@ -9,6 +10,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from ..parallel.dp import is_main
 
 
 class ClassificationEvaluator:
@@ -99,7 +102,7 @@ class ClassificationEvaluator:
             print(f"* average: {mean_acc:.1f}%")
             # Dassl stores the per-class mean under this key
             results["perclass_accuracy"] = mean_acc
-        if self.compute_cmat and self._y_true:
+        if self.compute_cmat and self._y_true and is_main():
             import os
 
             y_true = np.asarray(self._y_true)

@@ -17,6 +17,12 @@ With TRAIN.STEPS_PER_DISPATCH = N > 1 the epoch loop hands full groups
 of N batches to ``forward_backward_multi`` where the trainer has one (one
 dispatch a group) and the trailing partial group to ``forward_backward``.
 
+Under a process group (one rank a card) every rank runs the same loop
+on its rows of each batch; rank 0 alone writes the checkpoints (the
+others wait at a barrier after each save), and the evaluator reads the
+logits gathered over the ranks with the labels of the whole batch
+(``all_label``), the padded rows dropped.
+
 A subclass provides ``build_model(**kwargs)``, ``forward_backward``,
 ``model_inference(_async)``, the checkpoint-state accessors and
 ``self.device``.  ``build_trainer`` builds one through ``from_cfg``.
@@ -33,6 +39,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel import dp
 from .evaluator import ClassificationEvaluator
 from .optim import lr_at_epoch
 from .registry import TRAINER_REGISTRY
@@ -209,6 +216,11 @@ class TrainerBase:
         self._model_names.append(name)
 
     def save_model(self, epoch: int, is_best: bool = False) -> None:
+        if dp.is_main():
+            self._save_model(epoch, is_best)
+        dp.barrier()  # every rank reads what rank 0 wrote from here on
+
+    def _save_model(self, epoch: int, is_best: bool) -> None:
         for name in self._model_names:
             model_dir = os.path.join(self.output_dir, name)
             os.makedirs(model_dir, exist_ok=True)
@@ -453,7 +465,9 @@ class TrainerBase:
             self.evaluator.process(logits[:n], labels[:n])
 
         for batch in device_prefetch(loader, self.device, keys=("img",)):
-            pending.append((self.model_inference_async(batch["img"]), batch["label"], batch["n"]))
+            # under a mesh the logits are gathered: the whole batch's labels
+            labels = batch.get("all_label", batch["label"])
+            pending.append((self.model_inference_async(batch["img"]), labels, batch["n"]))
             if len(pending) > 2:
                 drain()
         while pending:

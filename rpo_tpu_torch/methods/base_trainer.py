@@ -27,6 +27,17 @@ their plain versions.  Images go through ``make_image_prep``: with
 INPUT.DEVICE_RESIZE a train batch is the {img, box, flip} of raw sources
 and the crops, resized on the device (``ops/preprocess.py``).
 
+Under a process group (one rank a card, ``torchrun``) the trainer takes
+its place in a mesh (``parallel/dp.py``, ``parallel/tp.py``): the data
+mesh over every rank, or with ``tensor_parallel`` (TRAIN.TENSOR_PARALLEL)
+the dp x tp grid, whose blocks are sliced for this rank before the
+method is built.  Its steps then take this rank's rows of the batch
+(the loader decodes only those): a train step all-reduces the gradients
+and the masked sums over the data ranks (``_make_train_step``'s ``mesh``
+variant, JAX's ``train_step_spmd``), an eval step all-gathers the logits
+back to the global batch.  The graphs capture NCCL's collectives with the
+step; gloo's run on the host, so under gloo the steps run eagerly.
+
 A trainer is built one of two ways.  Its keyword constructor takes the
 settings as arguments (the caller then sets ``current_lr`` before a
 step); ``TrainerBase.from_cfg`` (``engine.build_trainer``, the CLI)
@@ -36,6 +47,8 @@ checkpoints, resume and the final test.
 """
 from __future__ import annotations
 
+import contextlib
+import types
 from typing import Optional
 
 import numpy as np
@@ -52,6 +65,7 @@ from ..ops.attention import Attention, MaskedAttention
 from ..ops.masked_attention import masked_attention
 from ..ops.preprocess import _mean_std_u8, device_eval_preprocess, device_train_preprocess
 from ..ops.rect_attention import rect_attention
+from ..parallel import dp, tp
 from .step_graph import StepGraph, batch_spec, train_batch_spec
 
 
@@ -103,12 +117,37 @@ def prewarm_plan(group: int, num_batches: int):
     return warm_grouped, warm_single
 
 
-def _rows(images, a: int, b: int):
-    """Rows [a, b) of an image batch: a tensor, or the device-resize
-    {img, box, flip} dict."""
-    if isinstance(images, dict):
-        return {key: t[a:b] for key, t in images.items()}
-    return images[a:b]
+def make_mesh(tensor_parallel: int = 0) -> Optional[dp.Mesh]:
+    """The mesh of the process group, as ``_install_steps`` of the JAX
+    package routes by its device count: None without a group (one
+    process, one device); the dp x tp grid when TRAIN.TENSOR_PARALLEL
+    resolves over the ranks (``tp.setup_tp_mesh`` prints its line); else
+    the data mesh over every rank, with JAX's line ("over ICI" becomes the
+    backend)."""
+    if not dp.is_initialized():
+        return None
+    cfg = types.SimpleNamespace(TRAIN=types.SimpleNamespace(TENSOR_PARALLEL=tensor_parallel))
+    tp_ctx = tp.setup_tp_mesh(cfg)
+    if tp_ctx is not None:
+        return tp_ctx[0]
+    mesh = dp.make_mesh()
+    if mesh.world > 1:
+        print(f"Multiple devices detected (n={mesh.world}), data-parallel mesh over "
+              f"{mesh.backend}")
+    else:
+        print(f"One rank (n=1), data-parallel mesh over {mesh.backend}")
+    return mesh
+
+
+def _reduced(mesh: dp.Mesh, leaves, grads, nll_sum, logits, labels, mask):
+    """A mesh step's (loss, logits, grads, acc) from this rank's gradients
+    of ``sum(nll * mask)`` and its nll sum: ``dp.reduce_step`` sums them,
+    the correct count and the mask total over the data ranks, then
+    divides by the global mask total."""
+    correct = torch.sum((logits.argmax(-1) == labels) * mask)
+    loss, grads, acc = dp.reduce_step(mesh, grads, nll_sum, correct, torch.sum(mask))
+    it = iter(grads)
+    return loss, logits, optim.tree_map(lambda _: next(it), leaves), acc
 
 
 def prec_dtype(prec: str) -> torch.dtype:
@@ -143,6 +182,7 @@ class CLIPMethodTrainer(TrainerBase):
         pixel_mean=CLIP_PIXEL_MEAN,
         pixel_std=CLIP_PIXEL_STD,
         device_resize: int = 0,
+        tensor_parallel: int = 0,
     ):
         """``clip_params`` (a nested dict of tensors on ``device``, with
         ``clip_cfg``, its architecture: ``ARCHS[backbone]`` where None)
@@ -158,7 +198,12 @@ class CLIPMethodTrainer(TrainerBase):
         the SGD settings (OPTIM.MOMENTUM, WEIGHT_DECAY, SGD_NESTEROV,
         SGD_DAMPNING; nesterov with dampening raises); ``microbatch``
         (TRAIN.MICROBATCH) computes the train forward in chunks of that
-        many images inside the one loss and gradient."""
+        many images inside the one loss and gradient (each rank's rows
+        under a data mesh; ignored under tensor parallelism).  Under a
+        process group the trainer builds its mesh (``make_mesh``);
+        ``tensor_parallel`` (TRAIN.TENSOR_PARALLEL) asks for the dp x tp
+        grid, whose transformer blocks are sliced for this rank
+        (``tp.shard_params``) before the method is built."""
         if prec not in ("fp16", "fp32", "amp"):
             raise ValueError(f"PREC must be fp16, fp32 or amp, got {prec!r}")
         if nesterov and dampening:
@@ -170,6 +215,12 @@ class CLIPMethodTrainer(TrainerBase):
         self._microbatch = int(microbatch)
         self.current_lr: Optional[float] = None
         self.device = resolve_device(device)
+        self.mesh = make_mesh(tensor_parallel)
+        # gloo's collectives run on the host: no graph can hold them
+        self._eager_steps = (self.device.type != "cuda" or
+                             (self.mesh is not None and not self.mesh.capturable))
+        if self.device.type == "cuda" and self._eager_steps:
+            print(f"Train step eager: {self.mesh.backend} collectives cannot be captured")
         self.seed = max(int(seed), 0)
         dtype = prec_dtype(prec)
         if clip_params is None:
@@ -179,14 +230,25 @@ class CLIPMethodTrainer(TrainerBase):
         if not self.clip_cfg.is_vit:
             self.clip_params = {**self.clip_params,
                                 "visual": conv_layout(self.clip_params["visual"])}
+        self.clip_params = tp.shard_params(self.clip_params, self.clip_cfg, self.mesh)
         self._normalize = make_image_prep(self.clip_cfg.image_resolution, pixel_mean, pixel_std,
                                           dtype, device_resize)
         self.params = None
         self._loss_and_grads = None
         self._optimizer = None
         self._graphs = {}  # (steps, batch_spec) -> StepGraph
-        self.build_method()
+        with self._tp_scope():
+            self.build_method()
         self._reset_optimizer()
+
+    @property
+    def tensor_parallel(self) -> bool:
+        return self.mesh is not None and self.mesh.tp > 1
+
+    def _tp_scope(self):
+        """The sliced blocks' scope under tensor parallelism, else nothing."""
+        return tp.tensor_parallel_scope(self.mesh) if self.tensor_parallel \
+            else contextlib.nullcontext()
 
     def build_method(self) -> None:
         raise NotImplementedError
@@ -239,7 +301,8 @@ class CLIPMethodTrainer(TrainerBase):
             momentum=float(cfg.OPTIM.MOMENTUM), weight_decay=float(cfg.OPTIM.WEIGHT_DECAY),
             nesterov=bool(cfg.OPTIM.SGD_NESTEROV), dampening=float(cfg.OPTIM.SGD_DAMPNING),
             microbatch=int(cfg.TRAIN.MICROBATCH), pixel_mean=cfg.INPUT.PIXEL_MEAN,
-            pixel_std=cfg.INPUT.PIXEL_STD, device_resize=int(cfg.INPUT.DEVICE_RESIZE))
+            pixel_std=cfg.INPUT.PIXEL_STD, device_resize=int(cfg.INPUT.DEVICE_RESIZE),
+            tensor_parallel=int(cfg.TRAIN.TENSOR_PARALLEL))
         if self.params is None:  # nothing to initialise or save (zero-shot CLIP)
             return
         if cfg.MODEL.INIT_WEIGHTS:
@@ -253,6 +316,27 @@ class CLIPMethodTrainer(TrainerBase):
         print(f"Parameters to be updated: {names}")
 
     def _install_steps(self, text_features, eval_step, loss_and_grads=None) -> None:
+        """The method's steps routed by the mesh (JAX's ``_install_steps``):
+        one process as they are; a data mesh's eval on this rank's rows,
+        the logits gathered (``dp.shard_eval_step_local``); dp x tp's under
+        the tensor-parallel scope (``tp.shard_eval_step_tp``).  A mesh's
+        ``loss_and_grads`` is built with its collectives
+        (``_make_train_step(mesh=...)``)."""
+        mesh = self.mesh
+        if self.tensor_parallel:
+            scope = self._tp_scope
+
+            def scoped(fn):
+                def run(*args):
+                    with scope():
+                        return fn(*args)
+                return run
+
+            text_features = text_features and scoped(text_features)
+            loss_and_grads = loss_and_grads and scoped(loss_and_grads)
+            eval_step = eval_step and tp.shard_eval_step_tp(eval_step, mesh)
+        elif mesh is not None:
+            eval_step = eval_step and dp.shard_eval_step_local(eval_step, mesh)
         self._text_features = text_features
         self._eval_step = eval_step
         self._loss_and_grads = loss_and_grads
@@ -272,7 +356,37 @@ class CLIPMethodTrainer(TrainerBase):
                                         self._nesterov, self._dampening)
 
     # -- training -------------------------------------------------------------
-    def _make_train_step(self, logits_fn, precompute=None, microbatch: Optional[int] = None):
+    def _build_microbatched_train_step(self, logits_fn, precompute=None):
+        """TRAIN.MICROBATCH resolved against the mesh, then the step
+        (``_make_train_step``): the topology policy of the JAX package, one
+        copy for RPO, CoOp and LP, with its lines.
+
+        - one process: chunk when ``0 < mb < B`` divides evenly;
+        - a pure data mesh: chunk each rank's rows (the step's ``mesh``
+          variant sums over the ranks after its chunks);
+        - dp x tp: chunking stays (loudly) off, the tensor-parallel
+          program shards the tower math itself."""
+        mb = self._microbatch
+        mesh = self.mesh
+        if mb > 0 and mesh is not None and mesh.world > 1:
+            if mesh.tp > 1:
+                print(
+                    f"TRAIN.MICROBATCH={mb} ignored under "
+                    "TRAIN.TENSOR_PARALLEL: chunking is built for the pure "
+                    "data-parallel mesh (shard_map per-device rows); the "
+                    "tp program shards the tower math itself"
+                )
+                mb = 0
+            else:
+                print(
+                    f"TRAIN.MICROBATCH={mb}: per-device chunking via "
+                    f"shard_map over the {mesh.world}-device data "
+                    "mesh"
+                )
+        return self._make_train_step(logits_fn, precompute, microbatch=mb, mesh=mesh)
+
+    def _make_train_step(self, logits_fn, precompute=None, microbatch: Optional[int] = None,
+                         mesh: Optional[dp.Mesh] = None):
         """The standard step's loss and gradients over
         ``logits_fn(params, frozen, images_u8, ctx, rect_attn, masked_attn)
         -> (B, n_cls)``: masked cross-entropy in which padded rows weigh 0,
@@ -288,7 +402,14 @@ class CLIPMethodTrainer(TrainerBase):
         computes the forward in chunks of that many images inside the one
         loss and gradient; it engages only for batches it divides evenly
         and is smaller than, else the step is monolithic.  The math is the
-        monolithic step's row by row."""
+        monolithic step's row by row.
+
+        ``mesh`` builds JAX's ``train_step_spmd``: the step sees this
+        rank's rows, takes the gradient of their ``sum(nll * mask)`` and
+        sums the gradients, the nll sum, the correct count and
+        ``sum(mask)`` over the data ranks (``dp.reduce_step``, one
+        all-reduce) before it divides by the global mask total; it returns
+        the global accuracy as a fourth value."""
         mb = self._microbatch if microbatch is None else int(microbatch)
 
         def batch_logits(p, frozen, images_u8, rect_attn, masked_attn):
@@ -297,7 +418,7 @@ class CLIPMethodTrainer(TrainerBase):
             if not 0 < mb < B or B % mb:
                 return logits_fn(p, frozen, images_u8, ctx, rect_attn, masked_attn)
             return torch.cat([
-                logits_fn(p, frozen, _rows(images_u8, i * mb, (i + 1) * mb), ctx, rect_attn,
+                logits_fn(p, frozen, dp.rows_of(images_u8, i * mb, (i + 1) * mb), ctx, rect_attn,
                           masked_attn)
                 for i in range(B // mb)])
 
@@ -308,15 +429,21 @@ class CLIPMethodTrainer(TrainerBase):
                 logits = batch_logits(leaves, frozen, images_u8, rect_attn, masked_attn)
                 logp = torch.log_softmax(logits, dim=-1)
                 nll = -logp.gather(-1, labels[:, None])[:, 0]
-                loss = torch.sum(nll * mask) / torch.sum(mask)
+                if mesh is None:
+                    loss = torch.sum(nll * mask) / torch.sum(mask)
+                else:  # the local sum; the normaliser is the global mask total
+                    loss = torch.sum(nll * mask)
                 flat = list(optim.tree_leaves(leaves))
                 grads = torch.autograd.grad(loss, flat)
+            if mesh is not None:
+                return _reduced(mesh, leaves, grads, loss.detach(), logits.detach(), labels, mask)
             it = iter(grads)
             return loss.detach(), logits.detach(), optim.tree_map(lambda _: next(it), leaves)
 
         return loss_and_grads
 
-    def _make_grad_accum_train_step(self, precompute, chunk_logits_fn, chunk_size: int):
+    def _make_grad_accum_train_step(self, precompute, chunk_logits_fn, chunk_size: int,
+                                    mesh: Optional[dp.Mesh] = None):
         """Exact gradient accumulation over image chunks, with the
         ``loss_and_grads`` signature of ``_make_train_step``'s (the JAX
         package's ``_make_grad_accum_train_step``).
@@ -331,7 +458,12 @@ class CLIPMethodTrainer(TrainerBase):
         at once, so that one chunk's activations are alive at a time, and
         adds the gradient of sum(nll * mask).  Divided by sum(mask), the
         sums are the loss and the gradients; the logits are the chunks'
-        in order.  A Python loop: inside a captured graph it unrolls."""
+        in order.  A Python loop: inside a captured graph it unrolls.
+
+        ``mesh``: each rank accumulates over the chunks of its own rows,
+        then one all-reduce sums the gradients and the sums over the data
+        ranks (``dp.reduce_step``), as ``_make_train_step``'s; the global
+        accuracy comes back as a fourth value."""
 
         def loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn, masked_attn):
             with torch.no_grad():
@@ -354,9 +486,12 @@ class CLIPMethodTrainer(TrainerBase):
                     a + b for a, b in zip(grads, chunk_grads)]
                 nll_sum = nll_sum + chunk_sum.detach()
                 logits.append(chunk_logits.detach())
+            logits = torch.cat(logits)
+            if mesh is not None:
+                return _reduced(mesh, leaves, grads, nll_sum, logits, labels, mask)
             denom = torch.sum(mask)
             it = iter(grads)
-            return (nll_sum / denom, torch.cat(logits),
+            return (nll_sum / denom, logits,
                     optim.tree_map(lambda _: next(it) / denom, leaves))
 
         return loss_and_grads
@@ -388,8 +523,10 @@ class CLIPMethodTrainer(TrainerBase):
         """(loss, logits, grads) of the train step at the current
         trainable state, without the update.  ``rect_attn`` and
         ``masked_attn`` replace the attention kernels (for a comparison
-        with their plain versions)."""
-        return self._grads_on(self._batch(images_u8, labels, mask), rect_attn, masked_attn)
+        with their plain versions).  Under a mesh the batch is this rank's
+        rows, the loss and gradients the global batch's, the logits this
+        rank's."""
+        return self._grads_on(self._batch(images_u8, labels, mask), rect_attn, masked_attn)[:3]
 
     def _grads_on(self, batch, rect_attn, masked_attn):
         if self._loss_and_grads is None:
@@ -402,9 +539,12 @@ class CLIPMethodTrainer(TrainerBase):
         learning-rate tensor: (masked loss, masked top-1 accuracy) as
         device scalars.  Tensor operations only, no host sync: the step a
         ``StepGraph`` captures, and ``train_step``'s."""
-        loss, logits, grads = self._grads_on((images, labels, mask), rect_attn, masked_attn)
+        out = self._grads_on((images, labels, mask), rect_attn, masked_attn)
+        loss, logits, grads = out[:3]
         self._optimizer.update(self.params, grads)
         self._text_f_cache = None
+        if len(out) > 3:  # a mesh's step: the accuracy summed over the ranks
+            return loss, out[3]
         acc = torch.sum((logits.argmax(-1) == labels) * mask) / torch.sum(mask)
         return loss, acc
 
@@ -420,7 +560,8 @@ class CLIPMethodTrainer(TrainerBase):
         """One SGD step at ``lr`` on a (B, H, W, 3) uint8 batch (or the
         device-resize {img, box, flip}), run eagerly; returns the masked
         loss and the masked top-1 accuracy as device scalars (no host
-        sync).  Clears the text-feature cache."""
+        sync).  Clears the text-feature cache.  Under a mesh the batch is
+        this rank's rows, the loss and accuracy the global batch's."""
         if self._loss_and_grads is None:
             raise self._no_train_step()
         batch = self._batch(images_u8, labels, mask)
@@ -458,12 +599,12 @@ class CLIPMethodTrainer(TrainerBase):
     def _dispatch(self, batches) -> list:
         """The steps of ``batches`` at ``self.current_lr``: one replay of
         the graph of ``len(batches)`` steps on the card, the eager steps
-        in sequence on the CPU.  Returns their summaries."""
+        in sequence on the CPU and under gloo.  Returns their summaries."""
         if self.current_lr is None:
             raise RuntimeError("set current_lr (lr_at_epoch) before a train step")
         if self._loss_and_grads is None:
             raise self._no_train_step()
-        if self.device.type != "cuda":
+        if self._eager_steps:
             return [self._summary(*self.train_step(self._train_images(b), b["label"], b["mask"],
                                                    self.current_lr)) for b in batches]
         graph = self._graph(len(batches), batch_spec(batches[0]))
@@ -495,12 +636,16 @@ class CLIPMethodTrainer(TrainerBase):
         ``prewarm_plan`` says the epoch loop will replay, at the loader's
         batch shapes (JAX's ``_prewarm_compiles``, run here after the
         resume, so the graphs read the resumed state).  Nothing to
-        prepare on the CPU, where the steps run eagerly."""
-        if self.device.type != "cuda" or self._loss_and_grads is None:
+        prepare where the steps run eagerly (the CPU, gloo).  Under a mesh
+        a rank's batch is ``pad_multiple(B, dp) / dp`` rows, the loader's."""
+        if self._eager_steps or self._loss_and_grads is None:
             return
         cfg = self.cfg
-        spec = train_batch_spec(int(cfg.DATALOADER.TRAIN_X.BATCH_SIZE),
-                                self.clip_cfg.image_resolution, int(cfg.INPUT.DEVICE_RESIZE))
+        rows = int(cfg.DATALOADER.TRAIN_X.BATCH_SIZE)
+        if self.mesh is not None:
+            rows = dp.pad_multiple(rows, self.mesh.dp) // self.mesh.dp
+        spec = train_batch_spec(rows, self.clip_cfg.image_resolution,
+                                int(cfg.INPUT.DEVICE_RESIZE))
         group = max(1, int(cfg.TRAIN.STEPS_PER_DISPATCH))
         warm_grouped, warm_single = prewarm_plan(group, len(self.dm.train_loader_x))
         steps = [n for n, warm in ((group, warm_grouped), (1, warm_single)) if warm]
@@ -536,7 +681,9 @@ class CLIPMethodTrainer(TrainerBase):
         """(B, n_cls) logits for a uint8 (B, H, W, 3) batch, on the device.
         ``rect_attn`` and ``masked_attn`` replace the attention kernels
         (for a comparison with their plain versions); the cached text
-        features are computed with the kernels."""
+        features are computed with the kernels.  Under a mesh the batch is
+        this rank's rows and the logits the global batch's (every data
+        rank's rows, gathered)."""
         images = torch.as_tensor(images_u8).to(self.device)
         return self._eval_step(
             self.params, self._frozen, self.text_features(), images, rect_attn, masked_attn

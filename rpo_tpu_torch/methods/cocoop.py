@@ -31,6 +31,7 @@ from ..ops.attention import Attention, MaskedAttention
 from ..ops.fused_text_layer import fused_text_layer, with_kernel_layout
 from ..ops.masked_attention import masked_attention
 from ..ops.rect_attention import rect_attention
+from ..parallel import dp
 from .base_trainer import CLIPMethodTrainer
 from .coop import CoOpTask, init_ctx, make_task, text_encoder
 
@@ -178,11 +179,17 @@ class CoCoOp(CLIPMethodTrainer):
             "meta_net": init_meta_net(gen, cfg.embed_dim, cfg.text_width),
         }
         self.task = task = make_task(cfg, self.classnames, n_ctx, False, "end", prompt_prefix)
-        # the text tower's weight matrices also in the fused kernel's layout,
-        # laid out once here for every eval launch
-        text = self.clip_params["text"]
-        self._frozen = {"clip": {**self.clip_params, "text": {
-            **text, "blocks": with_kernel_layout(text["blocks"])}}}
+        if self.tensor_parallel:
+            # a rank's heads need a sum over the model group inside each
+            # layer, which the whole-layer kernel has no place for
+            print("CoCoOp eval under TRAIN.TENSOR_PARALLEL: the text towers run unfused")
+            self._frozen = {"clip": self.clip_params}
+        else:
+            # the text tower's weight matrices also in the fused kernel's
+            # layout, laid out once here for every eval launch
+            text = self.clip_params["text"]
+            self._frozen = {"clip": {**self.clip_params, "text": {
+                **text, "blocks": with_kernel_layout(text["blocks"])}}}
         normalize = self._normalize
 
         # training: the text towers block by block on masked_attn (the
@@ -201,13 +208,19 @@ class CoCoOp(CLIPMethodTrainer):
             return cocoop_logits(params, frozen["clip"], task, None, image_features=imf,
                                  text_layer=None, masked_attn=masked_attn)
 
+        # under a mesh each rank accumulates over its own rows' chunks, then
+        # one all-reduce: legal where JAX's scan over a sharded batch is not
+        mesh = self.mesh
         steps = self._train_steps = {
-            "monolithic": self._make_train_step(logits_fn, microbatch=0),
-            "accumulated": self._make_grad_accum_train_step(precompute, chunk_logits, ACCUM_CHUNK),
+            "monolithic": self._make_train_step(logits_fn, microbatch=0, mesh=mesh),
+            "accumulated": self._make_grad_accum_train_step(precompute, chunk_logits, ACCUM_CHUNK,
+                                                            mesh=mesh),
         }
+        ranks = 1 if mesh is None else mesh.dp
 
         def loss_and_grads(params, frozen, images_u8, *rest):
-            B = (images_u8["img"] if isinstance(images_u8, dict) else images_u8).shape[0]
+            # the step by the global batch: this rank's rows times the ranks
+            B = (images_u8["img"] if isinstance(images_u8, dict) else images_u8).shape[0] * ranks
             return steps["accumulated" if B >= ACCUM_BATCH else "monolithic"](
                 params, frozen, images_u8, *rest)
 
@@ -225,9 +238,10 @@ class CoCoOp(CLIPMethodTrainer):
     ):
         """``loss_and_grads`` by the step of ``kind``, "monolithic" or
         "accumulated", whatever the batch: for a comparison of the two."""
-        return self._train_steps[kind](self.params, self._frozen,
-                                       *self._batch(images_u8, labels, mask), rect_attn,
-                                       masked_attn)
+        with self._tp_scope():
+            return self._train_steps[kind](self.params, self._frozen,
+                                           *self._batch(images_u8, labels, mask), rect_attn,
+                                           masked_attn)[:3]
 
     @torch.no_grad()
     def eval_step(
@@ -239,12 +253,18 @@ class CoCoOp(CLIPMethodTrainer):
         """(B, n_cls) logits for a uint8 (B, H, W, 3) batch: the image
         tower once over the batch, then ``cocoop_logits`` in chunks of
         ``eval_chunk(B)`` images.  ``rect_attn`` and ``text_layer`` replace
-        the kernels (for a comparison with their plain versions)."""
+        the kernels (for a comparison with their plain versions).  Under a
+        mesh the batch is this rank's rows and the logits are gathered to
+        the global batch; under tensor parallelism the text towers run
+        unfused."""
         images = self._normalize(torch.as_tensor(images_u8).to(self.device))
         clip = self._frozen["clip"]
-        imf = encode_image(clip, self.clip_cfg, images, rect_attn).float()
-        return cocoop_logits(self.params, clip, self.task, None, chunk=eval_chunk(imf.shape[0]),
-                             image_features=imf, text_layer=text_layer)
+        with self._tp_scope():
+            imf = encode_image(clip, self.clip_cfg, images, rect_attn).float()
+            logits = cocoop_logits(self.params, clip, self.task, None,
+                                   chunk=eval_chunk(imf.shape[0]), image_features=imf,
+                                   text_layer=None if self.tensor_parallel else text_layer)
+        return logits if self.mesh is None else dp.gather_rows(logits, self.mesh)
 
     def set_ckpt_state(self, name: str, state) -> None:
         """Reference torch checkpoints too: their prompt_learner state is

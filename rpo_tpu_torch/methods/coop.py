@@ -317,4 +317,4 @@ class CoOp(CLIPMethodTrainer):
             return eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn)
 
         self._install_steps(text_features, eval_step,
-                            self._make_train_step(logits_fn, precompute))
+                            self._build_microbatched_train_step(logits_fn, precompute))

@@ -101,7 +101,7 @@ class LP(CLIPMethodTrainer):
         def logits_fn(params, frozen, images_u8, _ctx, rect_attn, masked_attn):
             return eval_step(params, frozen, None, images_u8, rect_attn, masked_attn)
 
-        self._install_steps(None, eval_step, self._make_train_step(logits_fn))
+        self._install_steps(None, eval_step, self._build_microbatched_train_step(logits_fn))
 
     def set_ckpt_state(self, name: str, state) -> None:
         """Reference torch checkpoints too: their lp_layer state is torch's

@@ -65,6 +65,9 @@ class RPO(CLIPMethodTrainer):
     def build_method(self) -> None:
         if not self.clip_cfg.is_vit:
             raise ValueError("RPO requires a ViT backbone")
+        if self.vision_layer is not None and self.tensor_parallel:
+            raise ValueError("a fused vision layer cannot run under TRAIN.TENSOR_PARALLEL: a "
+                             "rank's heads need a sum over the model group inside the layer")
         self.task = core.make_task(
             self.clip_cfg, self.classnames, self.prompt_template, self.K
         )
@@ -103,4 +106,4 @@ class RPO(CLIPMethodTrainer):
                                    rect_attn=rect_attn, split_vision=True)
 
         self._install_steps(text_features, eval_step,
-                            self._make_train_step(logits_fn, precompute))
+                            self._build_microbatched_train_step(logits_fn, precompute))

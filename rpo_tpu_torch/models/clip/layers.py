@@ -8,6 +8,10 @@ Port of ``rpo_tpu/models/clip/layers.py``, with the same numerics:
     on the card (cuBLAS, f32 accumulation) and on the CPU
     (tests/test_torch_port_layers.py checks the CPU one).
   - Blocks are pre-LN residual: attention, then the 4x MLP.
+  - Under tensor parallelism (``parallel/tp.py``, JAX's ``shard_hidden``)
+    a block's fc holds a rank's slice of the 4W hidden columns and proj
+    the matching rows; proj's float32 partial products are summed over
+    the model group before the cast and the bias.
 
 A transformer's blocks are stacked along a leading layer axis, as in the
 JAX pytree; the ``lax.scan`` over them is a Python loop over the index.
@@ -30,6 +34,7 @@ from ...ops.attention import (
 from ...ops.fused_text_layer import fused_text_tower
 from ...ops.masked_attention import masked_attention
 from ...ops.rect_attention import rect_attention
+from ...parallel import tp
 
 # (x, one layer's params, n_heads, (L, L) mask) -> x, a whole residual block
 TextLayer = Callable[[torch.Tensor, dict, int, torch.Tensor], torch.Tensor]
@@ -64,7 +69,11 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(x: torch.Tensor, params: dict) -> torch.Tensor:
-    """4x expansion MLP with QuickGELU."""
+    """4x expansion MLP with QuickGELU (a tensor-parallel rank's slice of
+    the hidden when fc is narrower than 4D)."""
+    if tp.mlp_sliced(params["fc_w"]):
+        h = torch.matmul(tp.column_input(x), params["fc_w"]) + params["fc_b"].to(x.dtype)
+        return tp.row_parallel(quick_gelu(h), params["proj_w"], params["proj_b"], x.dtype)
     h = torch.matmul(x, params["fc_w"]) + params["fc_b"].to(x.dtype)
     h = quick_gelu(h)
     return torch.matmul(h, params["proj_w"]) + params["proj_b"].to(x.dtype)

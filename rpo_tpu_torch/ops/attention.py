@@ -12,8 +12,14 @@ row-aligned (1 | B, 1, L, L) bias — the text towers' masks — goes to
 version on a CPU tensor).  Every other bias — column-broadcast, per-head,
 the cached text cross-attention (Lq != Lk) — runs the plain f32-softmax
 math here, as the JAX package sends it to XLA.  The dispatch looks at
-shapes only: the JAX package's thread-local Pallas scope, its environment
-switches and its tensor-parallel hooks have no counterpart here.
+shapes only: the JAX package's thread-local Pallas scope and its
+environment switches have no counterpart here.
+
+Tensor parallelism (``parallel/tp.py``, JAX's ``shard_heads``): a block
+whose q/k/v weight holds a slice of the heads (narrower than 3D) runs
+those heads only, the kernels on them, and its out-projection sums the
+float32 partial products over the model group (``tp.row_parallel``)
+before the cast and the bias.
 
 The attention functions are arguments (``rect_attn``, ``masked_attn``)
 with the kernels as defaults, threaded down from the towers, so that a
@@ -25,6 +31,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import tp
 from .masked_attention import masked_attention
 from .rect_attention import rect_attention
 
@@ -84,20 +91,39 @@ def _head_proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, n_heads: int) 
     return out.view(B, L, n_heads, -1).permute(0, 2, 1, 3)
 
 
+def _heads_here(params: dict, D: int, n_heads: int) -> int:
+    """The heads this block holds: all ``n_heads``, or a tensor-parallel
+    rank's slice of them (its q/k/v weight narrower than 3D)."""
+    return n_heads * (params["qkv_w"].shape[-1] // 3) // D
+
+
+def _qkv_input(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """The projections' input: under a sliced block, the gradient of x is
+    summed over the model group on the way back."""
+    return tp.column_input(x) if tp.attention_sliced(params["qkv_w"]) else x
+
+
 def _split_qkv(x: torch.Tensor, params: dict, n_heads: int):
     """The fused (D, 3D) QKV projection as one matmul, split into the
-    per-head (B, H, L, Dh) q, k, v views."""
+    per-head (B, H, L, Dh) q, k, v views (the block's heads: a slice of
+    them under tensor parallelism)."""
     B, L, D = x.shape
-    qkv = torch.matmul(x, params["qkv_w"]) + params["qkv_b"].to(x.dtype)
-    qkv = qkv.view(B, L, 3, n_heads, D // n_heads).permute(2, 0, 3, 1, 4)
+    heads = _heads_here(params, D, n_heads)
+    qkv = torch.matmul(_qkv_input(x, params), params["qkv_w"]) + params["qkv_b"].to(x.dtype)
+    qkv = qkv.view(B, L, 3, heads, D // n_heads).permute(2, 0, 3, 1, 4)
     return qkv[0], qkv[1], qkv[2]
 
 
 def _out_proj(out: torch.Tensor, params: dict, dtype) -> torch.Tensor:
-    """(B, H, L, Dh) attention output -> merged (B, L, D) projection."""
+    """(B, H, L, Dh) attention output -> merged (B, L, D) projection; a
+    tensor-parallel rank's heads (fewer rows of out_w than columns) sum
+    their partial products over the model group."""
     B, H, L, Dh = out.shape
     merged = out.permute(0, 2, 1, 3).reshape(B, L, H * Dh)
-    return torch.matmul(merged, params["out_w"]).to(dtype) + params["out_b"].to(dtype)
+    w = params["out_w"]
+    if tp.out_proj_sliced(w):
+        return tp.row_parallel(merged, w, params["out_b"], dtype)
+    return torch.matmul(merged, w).to(dtype) + params["out_b"].to(dtype)
 
 
 def multihead_attention(
@@ -151,9 +177,12 @@ def multihead_attention_rect(
     version."""
     D = x.shape[-1]
     w, b = params["qkv_w"], params["qkv_b"]
-    q = _head_proj(x, w[:, :D], b[:D], n_heads)
-    kv = _head_proj(x[:, :n_kv], w[:, D:], b[D:], 2 * n_heads)
-    k, v = kv[:, :n_heads], kv[:, n_heads:]
+    heads = _heads_here(params, D, n_heads)
+    qw = w.shape[-1] // 3
+    x = _qkv_input(x, params)
+    q = _head_proj(x, w[:, :qw], b[:qw], heads)
+    kv = _head_proj(x[:, :n_kv], w[:, qw:], b[qw:], 2 * heads)
+    k, v = kv[:, :heads], kv[:, heads:]
     out = rect_attn(q, k, v)
     return _out_proj(out, params, x.dtype)
 
@@ -174,6 +203,8 @@ def multihead_attention_cached(
     prompt rows) it goes to ``rect_attn``; the cached text path's
     column-broadcast bias takes the plain math."""
     D = x_q.shape[-1]
-    q = _head_proj(x_q, params["qkv_w"][:, :D], params["qkv_b"][:D], n_heads)
+    qw = params["qkv_w"].shape[-1] // 3
+    q = _head_proj(_qkv_input(x_q, params), params["qkv_w"][:, :qw], params["qkv_b"][:qw],
+                   _heads_here(params, D, n_heads))
     out = dot_product_attention(q, k.to(x_q.dtype), v.to(x_q.dtype), bias, rect_attn, masked_attn)
     return _out_proj(out, params, x_q.dtype)

@@ -43,8 +43,12 @@ Where the port differs from the JAX package, and why:
   wrapper runs its plain version, so without it ``run_selftest`` raises
   there rather than hold a plain version to itself.
 
-Not yet: the JAX package's shard_map check (its ``:210-253``), which
-waits for the port of ``parallel/dp.py``.
+The JAX package's Pallas-in-shard_map check (its ``:210-253``) is the
+rect residual block through ``parallel.dp.shard_eval_step_local`` on a
+one-rank group (made and destroyed by the check when none is up): the
+halves of the batch that two data ranks would hold, each through the
+kernel on its own and gathered through the group's collective, against
+the plain block on the whole batch on one process.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ import sys
 import time
 import traceback
 import zlib
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
@@ -659,6 +664,42 @@ def checks(tol: float = BF16_TOL, device="cuda",
         return Reading(rel, _finite(out), f"max_abs_err {err:.3e}; max err / max(|plain|, 1), "
                        f"tol {tol:g}", err)
 
+    # the JAX selftest's Pallas-in-shard_map check: the block through the
+    # data mesh's per-rank eval (a one-rank group made for the check when
+    # none is up), on the halves of the batch that two data ranks would
+    # hold, each gathered through the group's collective, against the block
+    # on the whole batch on one process on the plain version
+    name = ("kernel rect_attention rect residual block (4, 221, 768) 12 heads n_kv 197 bf16 "
+            "through shard_eval_step_local on a one-rank group, two data ranks' halves, "
+            "against the plain block on one process")
+
+    @add(name, "rect_attention", (4, 221, 768, 12, 197), tol)
+    def one_rank_group(name=name):
+        from ..parallel import dp
+
+        gen = generator(name, device)
+        blk = random_block(gen, 768, device)
+        x = (torch.randn(4, 221, 768, generator=gen, device=device) * 0.1).to(BF16)
+
+        def eval_step(_params, _frozen, _text_f, rows, rect):
+            return rect_residual_block(rows, blk, 12, 197, rect_attn=rect)
+
+        with torch.no_grad(), process_group(device) as mesh:
+            step = dp.shard_eval_step_local(eval_step, mesh)
+            # a larger group's ranks each hold their rows and the gather brings
+            # the rest; a one-rank group runs the halves in turn
+            halves = ([dp.local_rows(len(x), mesh)] if mesh.dp > 1 else
+                      [dp.local_rows(len(x), dp.Mesh(r, 2, mesh.backend, 2)) for r in range(2)])
+            out = torch.cat([step(None, None, None, x[a:b], slot["rect_attention"])
+                             for a, b in halves])
+            world = mesh.world
+        with torch.no_grad():
+            ref = rect_residual_block(x, blk, 12, 197, rect_attn=ra.rect_attention_reference)
+        err = _max_err(out, ref)
+        rel = ((out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
+        return Reading(rel, _finite(out), f"max_abs_err {err:.3e} over {world} rank(s), rows "
+                       f"{halves}; max err / max(|plain|, 1), tol {tol:g}", err)
+
     # the device preprocess (INPUT.DEVICE_RESIZE) against the host's
     # Pillow-exact resample, within two uint8 steps in normalised units
     mean_h = np.asarray(CLIP_MEAN, np.float32) * 255.0
@@ -709,6 +750,30 @@ def checks(tol: float = BF16_TOL, device="cuda",
         return Reading(err, bool(np.isfinite(err)), f"tol {U8_TOL:.4g} (2.01 uint8 steps)", err)
 
     return table
+
+
+@contextmanager
+def process_group(device):
+    """The data mesh of the process group that is up, else of a one-rank
+    group made here (NCCL on a card, gloo on the CPU, over a FileStore in
+    a temporary directory) and destroyed on the way out."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ..parallel import dp
+
+    if dp.is_initialized():
+        yield dp.make_mesh()
+        return
+    with tempfile.TemporaryDirectory(prefix="selftest_group_") as tmp:
+        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+        dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            yield dp.make_mesh()
+        finally:
+            dist.destroy_process_group()
 
 
 # ---- the runner -------------------------------------------------------------

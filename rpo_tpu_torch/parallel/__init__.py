@@ -1,2 +1,5 @@
-"""Parallelism over several cards.  So far only ``tp.resolve_tp``, which
-keeps TRAIN.TENSOR_PARALLEL from being ignored quietly on one card."""
+"""Parallelism over several cards, one process a card: data parallelism
+(``dp.py``: the mesh, the loader's padding, the per-rank train algebra
+and the gathered eval) and tensor parallelism (``tp.py``: the dp x tp
+grid, the sliced blocks and their sums), the JAX package's
+``parallel/`` over ``torch.distributed``."""

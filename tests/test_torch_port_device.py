@@ -121,5 +121,5 @@ def test_data_manager_says_a_mesh_is_not_ported(counts, capsys):
     cfg.merge_from_file(os.path.join(REPO, "configs/datasets/synthetic.yaml"))
     cfg.merge_from_list(["TRAIN.TENSOR_PARALLEL", "2", "DATALOADER.NUM_WORKERS", "1"])
     DataManager(cfg)
-    assert "(!) TRAIN.TENSOR_PARALLEL=2: this package runs on one device" in \
-        capsys.readouterr().out
+    assert "(!) TRAIN.TENSOR_PARALLEL=2: one process drives one device; launch one rank a " \
+        "card with torchrun for the tensor-parallel mesh" in capsys.readouterr().out

@@ -10,7 +10,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "rpo_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# the package, chip_smoke.py, and the module the multi-rank tests' spawned
+# ranks import (they start with the spawn method: no jax there)
+PORT_FILES = sorted((ROOT / "rpo_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_port_dist_workers.py"]
 
 
 def _imported_roots(path: Path):
