@@ -389,8 +389,9 @@ def get_cfg_default() -> CfgNode:
                 "CHECKPOINT_FREQ": 0,
                 "PRINT_FREQ": 10,
                 "COUNT_ITER": "train_x",
-                # TPU-native observability (SURVEY.md §5): jax.profiler
-                # trace capture for the given epoch into PROFILE_DIR, and
+                # Observability: a torch.profiler trace of the given
+                # epoch into PROFILE_DIR (with the port's rpo: spans,
+                # whose summary the engine prints after the export), and
                 # a NaN detector equivalent to the reference's
                 # torch.autograd.set_detect_anomaly (train.py:287-288).
                 "PROFILE_DIR": "",

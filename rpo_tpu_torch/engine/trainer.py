@@ -39,6 +39,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..parallel import dp
 from .evaluator import ClassificationEvaluator
 from .optim import lr_at_epoch
@@ -324,6 +325,8 @@ class TrainerBase:
         if profiling:
             from torch.profiler import ProfilerActivity, profile
 
+            tracing.reset()  # the summary after the export is this epoch's
+
             os.makedirs(profile_dir, exist_ok=True)
             print(f"Capturing a torch.profiler trace of epoch {self.epoch + 1} -> {profile_dir}")
             activities = [ProfilerActivity.CPU]
@@ -343,6 +346,11 @@ class TrainerBase:
                 path = os.path.join(profile_dir, f"trace_epoch{self.epoch + 1}.json")
                 prof.export_chrome_trace(path)
                 print(f"Profiler trace saved to {path}")
+                for name, s in tracing.summary().items():
+                    n = s["count"]
+                    print(f"span {tracing.PREFIX}{name}: {n} calls, {s['total_ms'] / n:.3f} ms "
+                          f"a call, {s['self_ms'] / n:.3f} ms self")
+                tracing.reset()
 
     def _run_epoch_inner(self) -> None:
         meter = MetricMeter()

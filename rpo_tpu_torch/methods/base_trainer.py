@@ -54,6 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data.transforms import CLIP_PIXEL_MEAN, CLIP_PIXEL_STD
 from ..device import DeviceLike, resolve_device
 from ..engine import optim
@@ -600,18 +601,20 @@ class CLIPMethodTrainer(TrainerBase):
         """The steps of ``batches`` at ``self.current_lr``: one replay of
         the graph of ``len(batches)`` steps on the card, the eager steps
         in sequence on the CPU and under gloo.  Returns their summaries."""
-        if self.current_lr is None:
-            raise RuntimeError("set current_lr (lr_at_epoch) before a train step")
-        if self._loss_and_grads is None:
-            raise self._no_train_step()
-        if self._eager_steps:
-            return [self._summary(*self.train_step(self._train_images(b), b["label"], b["mask"],
-                                                   self.current_lr)) for b in batches]
-        graph = self._graph(len(batches), batch_spec(batches[0]))
-        self._optimizer.set_lr(self.current_lr)
-        losses, accs = graph.run(batches)
-        self._text_f_cache = None
-        return [self._summary(losses[i], accs[i]) for i in range(len(batches))]
+        with tracing.span("train_dispatch"):
+            if self.current_lr is None:
+                raise RuntimeError("set current_lr (lr_at_epoch) before a train step")
+            if self._loss_and_grads is None:
+                raise self._no_train_step()
+            if self._eager_steps:
+                return [self._summary(*self.train_step(self._train_images(b), b["label"],
+                                                       b["mask"], self.current_lr))
+                        for b in batches]
+            graph = self._graph(len(batches), batch_spec(batches[0]))
+            self._optimizer.set_lr(self.current_lr)
+            losses, accs = graph.run(batches)
+            self._text_f_cache = None
+            return [self._summary(losses[i], accs[i]) for i in range(len(batches))]
 
     def forward_backward(self, batch) -> dict:
         """The engine's hook: one step on ``{"img", "label", "mask"}`` (and

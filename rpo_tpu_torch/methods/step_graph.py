@@ -37,6 +37,7 @@ from typing import Callable, Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tracing
 from ..ops import fused_rect_layer, fused_text_layer, masked_attention, rect_attention
 
 # the kernels' launch counters, read around a capture: (module, attribute)
@@ -187,21 +188,23 @@ class StepGraph:
         """Copy the host batches (numpy arrays or CPU tensors) into the
         inputs through the pinned staging buffers, one non-blocking copy
         of each input."""
-        if self._staged is not None:
-            self._staged.synchronize()  # the last copy out of staging is done
-        for key, buf in self.inputs.items():
-            for i, batch in enumerate(batches):
-                value = batch[key]
-                if isinstance(value, torch.Tensor) and value.device.type != "cpu":
-                    raise ValueError(f"batch {key} is on {value.device}: the graph takes host "
-                                     "batches")
-                if tuple(np.shape(value)) != tuple(buf.shape[1:]):
-                    raise ValueError(f"batch {key} of shape {tuple(np.shape(value))}, the graph's "
-                                     f"is {tuple(buf.shape[1:])}")
-                self.staging[key][i].copy_(torch.as_tensor(np.asarray(value)))
-            buf.copy_(self.staging[key], non_blocking=True)
-        self._staged = torch.cuda.Event()
-        self._staged.record(torch.cuda.current_stream(self.device))
+        with tracing.span("stage_wait"):
+            if self._staged is not None:
+                self._staged.synchronize()  # the last copy out of staging is done
+        with tracing.span("stage_copy"):
+            for key, buf in self.inputs.items():
+                for i, batch in enumerate(batches):
+                    value = batch[key]
+                    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+                        raise ValueError(f"batch {key} is on {value.device}: the graph takes "
+                                         "host batches")
+                    if tuple(np.shape(value)) != tuple(buf.shape[1:]):
+                        raise ValueError(f"batch {key} of shape {tuple(np.shape(value))}, the "
+                                         f"graph's is {tuple(buf.shape[1:])}")
+                    self.staging[key][i].copy_(torch.as_tensor(np.asarray(value)))
+                buf.copy_(self.staging[key], non_blocking=True)
+            self._staged = torch.cuda.Event()
+            self._staged.record(torch.cuda.current_stream(self.device))
 
     def run(self, batches: Sequence[Mapping]) -> Tuple[torch.Tensor, torch.Tensor]:
         """One replay on ``n_steps`` batches; returns copies of the (N,)
@@ -215,6 +218,7 @@ class StepGraph:
             raise RuntimeError("the trainable state or the frozen bundle was replaced after the "
                                "train step was captured")
         self._load(batches)
-        self.graph.replay()
+        with tracing.span("replay"):
+            self.graph.replay()
         self.replays += 1
         return self.losses.clone(), self.accs.clone()
