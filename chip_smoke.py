@@ -2458,7 +2458,7 @@ def main() -> int:
         masked_times[f"train {B}x{L}"] = t
 
     N, L, d, heads = FUSED_TEXT_CHECKS[0][1]
-    blk = ftl.with_kernel_layout(text_block(gen, d))
+    blk = ftl.with_text_kernel_layout(text_block(gen, d))
     x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
     causal = mask("causal", 1, L)[0, 0]
     with torch.no_grad():

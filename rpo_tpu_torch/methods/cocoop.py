@@ -28,7 +28,7 @@ from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.layers import TextLayer
 from ..models.clip.model import encode_image
 from ..ops.attention import Attention, MaskedAttention
-from ..ops.fused_text_layer import fused_text_layer, with_kernel_layout
+from ..ops.fused_text_layer import fused_text_layer, with_text_kernel_layout
 from ..ops.masked_attention import masked_attention
 from ..ops.rect_attention import rect_attention
 from ..parallel import dp
@@ -189,7 +189,7 @@ class CoCoOp(CLIPMethodTrainer):
             # layout, laid out once here for every eval launch
             text = self.clip_params["text"]
             self._frozen = {"clip": {**self.clip_params, "text": {
-                **text, "blocks": with_kernel_layout(text["blocks"])}}}
+                **text, "blocks": with_text_kernel_layout(text["blocks"])}}}
         normalize = self._normalize
 
         # training: the text towers block by block on masked_attn (the

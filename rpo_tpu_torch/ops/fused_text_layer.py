@@ -15,9 +15,11 @@ is: both functions raise when grad is enabled and an input requires it.
 The JAX package's switches (``fused_text_scope``, ``RPO_TPU_FUSED_TEXT``,
 interpret mode) have no counterpart: a caller passes the layer function
 (``layers.transformer``'s ``text_layer``), and only CoCoOp's eval step
-does.  ``with_kernel_layout`` adds the kernel's layout of the four weight
-matrices to a block stack once (CoCoOp's build does it for its frozen
-text tower); a block without it is laid out at every launch.
+does.  ``with_text_kernel_layout`` adds the kernel's layout of the four
+weight matrices (wgmma's core matrices) to a block stack once (CoCoOp's
+build does it for its frozen text tower); a block without it is laid out
+at every launch.  ``with_kernel_layout`` (fragment-major) is the rect
+kernels' layout (``fused_rect_layer``), which this kernel refuses.
 
 Numerics, in the order of the TPU body (``_layer_kernel``): LayerNorm in
 f32, two-pass, with the scale and bias first cast to the activation
@@ -189,19 +191,61 @@ _FRAGMENT_ORDER = _fragment_order()
 
 def _fragment_major(w: torch.Tensor) -> torch.Tensor:
     """(..., K, N) -> (..., K/16, N/16, 256): each 16x16 tile's 512 bytes
-    contiguous, in ``_FRAGMENT_ORDER``: the kernel's layout for its B
-    operands (see ``gemm_tiles`` in csrc/fused_text_layer.cu)."""
+    contiguous, in ``_FRAGMENT_ORDER``: the rect kernels' layout for their
+    B operands (see ``gemm_tiles`` in csrc/fused_layer_common.cuh)."""
     *lead, K, N = w.shape
     tiles = w.reshape(*lead, K // 16, 16, N // 16, 16).transpose(-3, -2)
     tiles = tiles.reshape(*lead, K // 16, N // 16, 256)
     return tiles[..., _FRAGMENT_ORDER.to(w.device)].contiguous()
 
 
+def _core_matrices(w: torch.Tensor) -> torch.Tensor:
+    """(..., K, N) -> (..., K/16, N/16, 2, 2, 8, 8): the text kernel's layout
+    for its wgmma B operands (K-major core matrices, no swizzle; see the
+    note in csrc/fused_text_layer.cu).  Each 16x16 tile's 512 bytes are
+    contiguous as four 8x8 core matrices, the column half outer and the k
+    half inner; a core matrix is 8 columns of 8 contiguous k.  Element (k, n)
+    lands at [k // 16, n // 16, n % 16 // 8, k % 16 // 8, n % 8, k % 8]."""
+    *lead, K, N = w.shape
+    n = len(lead)
+    tiles = w.reshape(*lead, K // 16, 2, 8, N // 16, 2, 8)
+    return tiles.permute(*range(n), *(n + i for i in (0, 3, 4, 1, 5, 2))).contiguous()
+
+
+def with_text_kernel_layout(blocks: dict) -> dict:
+    """``blocks`` (one layer's params, or a stack of them with a leading
+    layer axis) plus, under ``"kernel"``, its four weight matrices in this
+    kernel's layout (``_core_matrices``), in bf16.  Made once where frozen
+    weights are installed (``CoCoOp.build_method``), it spares every launch
+    the layout pass; a block without it is laid out at each launch.  The
+    copies do not follow later in-place updates of the weights."""
+    return {**blocks, "kernel": {b: _core_matrices(blocks[a][b].to(torch.bfloat16))
+                                 for a, b in _MATRICES}}
+
+
+def _text_kernel_matrices(blk: dict) -> dict:
+    """The four weight matrices of one layer in this kernel's layout, by
+    name: those of ``with_text_kernel_layout`` where ``blk`` carries them
+    (checked against the weights' shapes and device; ``with_kernel_layout``'s
+    fragment-major ones are refused), else made now."""
+    made = blk.get("kernel")
+    if made is None:
+        return {b: _core_matrices(blk[a][b].to(torch.bfloat16)) for a, b in _MATRICES}
+    for a, b in _MATRICES:
+        K, N = blk[a][b].shape
+        t = made[b]
+        if (tuple(t.shape) != (K // 16, N // 16, 2, 2, 8, 8) or t.dtype != torch.bfloat16
+                or t.device != blk[a][b].device or not t.is_contiguous()):
+            raise ValueError(f"kernel layout of {a}.{b} is {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}: not with_text_kernel_layout's of this layer")
+    return made
+
+
 def with_kernel_layout(blocks: dict) -> dict:
     """``blocks`` (one layer's params, or a stack of them with a leading
     layer axis) plus, under ``"kernel"``, its four weight matrices in the
-    kernel's layout, in bf16.  Made once where frozen weights are installed
-    (``CoCoOp.build_method``; ``RPO.build_method`` for the fused vision
+    rect kernels' layout (``_fragment_major``), in bf16.  Made once where
+    frozen weights are installed (``RPO.build_method`` for the fused vision
     tower), it spares every launch the layout pass; a
     block without it is laid out at each launch.  The copies do not follow
     later in-place updates of the weights."""
@@ -211,7 +255,7 @@ def with_kernel_layout(blocks: dict) -> dict:
 
 def _kernel_matrices(blk: dict, matrices=_MATRICES) -> dict:
     """The named weight matrices of one layer (all four by default) in the
-    kernel's layout, by name: those of ``with_kernel_layout`` where ``blk``
+    rect kernels' layout, by name: those of ``with_kernel_layout`` where ``blk``
     carries them (the named ones checked against the weights' shapes and
     device), else made now."""
     made = blk.get("kernel")
@@ -228,12 +272,17 @@ def _kernel_matrices(blk: dict, matrices=_MATRICES) -> dict:
 
 
 def _launch(x: torch.Tensor, blk: dict, n_heads: int, mask: torch.Tensor, eps: float,
-            scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+            scratch: Optional[torch.Tensor] = None,
+            mats: Optional[dict] = None) -> torch.Tensor:
+    """The launch; ``mats``, the four matrices as the loaded build takes
+    them, is ``_text_kernel_matrices(blk)`` unless given (tools/time_fused.py
+    hands earlier builds theirs)."""
     global launches
     weights = [blk[a][b] for a, b in _WEIGHTS]
     mask = mask.to(device=x.device, dtype=torch.float32).contiguous()
     _check(x, weights, n_heads, mask)
-    mats = _kernel_matrices(blk)
+    if mats is None:
+        mats = _text_kernel_matrices(blk)
     weights = [mats[b] if (a, b) in _MATRICES else t.to(torch.bfloat16).contiguous()
                for (a, b), t in zip(_WEIGHTS, weights)]
     N, L, d = x.shape

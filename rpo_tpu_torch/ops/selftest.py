@@ -497,7 +497,7 @@ def checks(tol: float = BF16_TOL, device="cuda",
         def run():
             gen = generator(name, device)
             raw = random_block(gen, d, device)
-            blk = ftl.with_kernel_layout(raw)
+            blk = ftl.with_text_kernel_layout(raw)
             x = torch.randn(N, L, d, generator=gen, device=device).to(BF16)
             causal = attention_bias("causal", 1, L, device)[0, 0]
             with torch.no_grad():
@@ -522,7 +522,7 @@ def checks(tol: float = BF16_TOL, device="cuda",
         @add(name, "fused_text_layer", shape, math.inf, "control")
         def run():
             gen = generator(name, device)
-            blk = ftl.with_kernel_layout(random_block(gen, d, device))
+            blk = ftl.with_text_kernel_layout(random_block(gen, d, device))
             x = torch.randn(N, L, d, generator=gen, device=device).to(BF16)
             causal = attention_bias("causal", 1, L, device)[0, 0]
             no_bias = {**blk, "attn": {**blk["attn"],
@@ -541,7 +541,7 @@ def checks(tol: float = BF16_TOL, device="cuda",
          "refusal")
     def fused_text_refuses_f32():
         gen = generator("kernel fused_text_layer refuses f32", device)
-        blk = ftl.with_kernel_layout(random_block(gen, 64, device))
+        blk = ftl.with_text_kernel_layout(random_block(gen, 64, device))
         x = torch.randn(13, 16, 64, generator=gen, device=device)
         causal = attention_bias("causal", 1, 16, device)[0, 0]
         with torch.no_grad():

@@ -12,7 +12,9 @@ so each variant builds from one file against its own headers.  Where a
 ``fused_rect_layer.cu`` lies beside it too, that variant's rect-layer
 halves are timed as well.  All are built at once with the package's nvcc
 flags, and run under the same wrappers (``ops/fused_text_layer.py``,
-``ops/fused_rect_layer.py``): an earlier rect-layer library takes the same
+``ops/fused_rect_layer.py``): a text-layer build without
+``fused_text_layer_weight_layout`` (before the wgmma kernel) is handed its
+weights fragment-major, as it took them; an earlier rect-layer library takes the same
 arguments, and its attention half, which needs a (B * L, 3d) scratch, uses
 the front of the (B * L, 4d) one the wrapper allocates.
 
@@ -122,23 +124,26 @@ def variant_sources(text_cu: Path) -> Dict[str, str]:
 
 def build_variants(variants: Dict[str, Dict[str, str]]) -> Dict[str, Dict[str, ctypes.CDLL]]:
     """Every source of every variant built into its own library, all nvcc
-    runs at once; each kernel's ptxas registers, spills and shared bytes
+    runs at once (one for sources that are the same text, which share a
+    library); each kernel's ptxas registers, spills and shared bytes
     printed per variant."""
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
+    jobs, procs = {}, {}
     for label, sources in variants.items():
         for name, text in sources.items():
             digest = hashlib.sha256((text + " ".join(_build.NVCC_FLAGS)).encode()).hexdigest()[:12]
             src, lib = out_dir / f"{name}-{digest}.cu", out_dir / f"lib{name}-{digest}.so"
-            src.write_text(text)
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                    text=True)
-            jobs[label, name] = (proc, lib)
+            if lib not in procs:
+                src.write_text(text)
+                cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)]
+                procs[lib] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True)
+            jobs[label, name] = lib
+    logs = {lib: proc.communicate()[0] for lib, proc in procs.items()}
     libs: Dict[str, Dict[str, ctypes.CDLL]] = {}
-    for (label, name), (proc, lib) in jobs.items():
-        log, _ = proc.communicate()
+    for (label, name), lib in jobs.items():
+        log, proc = logs[lib], procs[lib]
         if proc.returncode != 0:
             raise RuntimeError(f"variant {label} {name}: nvcc exit {proc.returncode}\n{log}")
         kernel = ""
@@ -152,25 +157,42 @@ def build_variants(variants: Dict[str, Dict[str, str]]) -> Dict[str, Dict[str, c
     return libs
 
 
+# whether the loaded fused_text_layer build takes its weights fragment-major
+_fragment_major = False
+
+
 def use(libs: Dict[str, ctypes.CDLL]) -> None:
     """Make the wrappers launch from ``libs``."""
+    global _fragment_major
     for name, lib in libs.items():
         _build._loaded[name] = lib
+    if "fused_text_layer" in libs:
+        _fragment_major = not hasattr(libs["fused_text_layer"], "fused_text_layer_weight_layout")
     ftl._lib()  # each sets its argument types
     if "fused_rect_layer" in libs:
         frl._lib()
+
+
+def text_call(x: torch.Tensor, blk: dict, frag: dict, heads: int,
+              mask: torch.Tensor) -> torch.Tensor:
+    """The loaded build's fused text layer, the weights laid out as it takes
+    them: ``blk``'s ``with_text_kernel_layout``, or ``frag`` fragment-major."""
+    if _fragment_major:
+        return ftl._launch(x, blk, heads, mask, 1e-5, mats=frag)
+    return ftl.fused_text_layer(x, blk, heads, mask)
 
 
 def shapes(gen: torch.Generator, rect: bool):
     """(label, kernel name, call, plain call) per shape; the calls run
     under torch.no_grad()."""
     for label, (N, L, d, heads) in TEXT_SHAPES:
-        blk = ftl.with_kernel_layout(random_block(gen, d))
+        raw = random_block(gen, d)
+        blk, frag = ftl.with_text_kernel_layout(raw), ftl._kernel_matrices(raw)
         x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
         i = torch.arange(L, device="cuda")
         causal = torch.where(i[None, :] > i[:, None], -1e9, 0.0).float()
         yield (f"fused_text_layer {label} {(N, L, d)} {heads} heads", "fused_text_layer",
-               lambda x=x, b=blk, h=heads, m=causal: ftl.fused_text_layer(x, b, h, m),
+               lambda x=x, b=blk, f=frag, h=heads, m=causal: text_call(x, b, f, h, m),
                lambda x=x, b=blk, h=heads, m=causal: ftl.fused_text_layer_reference(x, b, h, m))
     if not rect:
         return
@@ -201,7 +223,7 @@ def phase_clocks(lib: ctypes.CDLL, smi: str) -> List[dict]:
     """The phase-clock build at the CoCoOp chunk: one reading per phase."""
     N, L, d, heads = TEXT_SHAPES[0][1]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    blk = ftl.with_kernel_layout(random_block(gen, d))
+    blk = ftl.with_text_kernel_layout(random_block(gen, d))
     x = torch.randn(N, L, d, generator=gen, device="cuda").to(torch.bfloat16)
     i = torch.arange(L, device="cuda")
     causal = torch.where(i[None, :] > i[:, None], -1e9, 0.0).float()

@@ -186,7 +186,7 @@ def test_build_lays_the_text_weights_out_once():
     laid_out = frozen["text"]["blocks"]["kernel"]
     assert set(laid_out) == {b for _, b in ftl._MATRICES}
     for a, b in ftl._MATRICES:
-        torch.testing.assert_close(laid_out[b], ftl._fragment_major(blocks[a][b].bfloat16()),
+        torch.testing.assert_close(laid_out[b], ftl._core_matrices(blocks[a][b].bfloat16()),
                                    rtol=0, atol=0)
     assert all(frozen["text"]["blocks"][k] is v for k, v in blocks.items())
     assert frozen["visual"] is model.clip_params["visual"]

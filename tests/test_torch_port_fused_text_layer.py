@@ -211,3 +211,57 @@ def test_kernel_matrices_are_made_once_per_weight():
     wrong["kernel"] = {**wrong["kernel"], "fc_w": wrong["kernel"]["proj_w"]}
     with pytest.raises(ValueError, match="kernel layout of mlp.fc_w"):
         ftl._kernel_matrices(wrong)
+
+
+def test_core_matrices_round_trip():
+    """The text kernel's layout is a permutation of the matrix: every
+    element once, and undoing the permutation gives the row-major matrix
+    back, with a leading layer axis too."""
+    w = torch.arange(3 * 32 * 48, dtype=torch.float32).reshape(3, 32, 48)
+    cm = ftl._core_matrices(w)
+    assert tuple(cm.shape) == (3, 2, 3, 2, 2, 8, 8) and cm.is_contiguous()
+    assert sorted(cm.flatten().tolist()) == list(range(w.numel()))
+    back = cm.permute(0, 1, 4, 6, 2, 3, 5).reshape(3, 32, 48)
+    assert torch.equal(back, w)
+
+
+@pytest.mark.parametrize("k,n,element", [
+    (0, 0, 0),
+    (9, 3, 89),  # k half 1 (64 elements in), column 3 of the core matrix (8 each), k 1
+    (17, 40, 1409),  # k tile 1 of 3 column tiles, column tile 2, column half 1, k 1
+    (31, 47, 1535),  # the last element
+])
+def test_core_matrices_offsets(k, n, element):
+    """Hand-computed element offsets (bytes = 2 x element) of a (32, 48)
+    matrix: tile (k // 16, n // 16) at 256 elements a tile, then the core
+    matrix (column half, k half) at 128 and 64, then 8 contiguous k of one
+    column; one core matrix row is 16 contiguous bytes."""
+    w = torch.arange(32 * 48, dtype=torch.float32).reshape(32, 48)
+    flat = ftl._core_matrices(w).flatten()
+    assert flat[element].item() == w[k, n].item()
+    row = element - k % 8  # the core matrix row that holds (k, n)
+    assert flat[row:row + 8].tolist() == w[k - k % 8:k - k % 8 + 8, n].tolist()
+
+
+def test_text_kernel_layout_is_made_once_and_refuses_the_rect_layout():
+    """``with_text_kernel_layout`` lays every layer's four matrices out once
+    (a layer's slice is what a launch would make from that layer alone);
+    the text kernel refuses a block laid out by ``with_kernel_layout``
+    (fragment-major, the rect kernels'), and the rect kernels refuse this
+    one."""
+    d, heads = WIDTHS["TINY"]
+    _, blocks = _both(_blocks(11, 2, d), "bfloat16")
+    prepared = ftl.with_text_kernel_layout(blocks)
+    assert set(prepared) == set(blocks) | {"kernel"}
+    for i in range(2):
+        blk = layer_params(prepared, i)
+        assert ftl._text_kernel_matrices(blk) is blk["kernel"]
+        made = ftl._text_kernel_matrices(layer_params(blocks, i))
+        for name, t in made.items():
+            assert blk["kernel"][name].is_contiguous()
+            assert torch.equal(blk["kernel"][name], t)
+    rect = layer_params(ftl.with_kernel_layout(blocks), 0)
+    with pytest.raises(ValueError, match="not with_text_kernel_layout's"):
+        ftl._text_kernel_matrices(rect)
+    with pytest.raises(ValueError, match="not with_kernel_layout's"):
+        ftl._kernel_matrices(layer_params(prepared, 0))

@@ -161,3 +161,51 @@ def test_device_ms_is_the_sum_of_its_split_by_kernel(monkeypatch):
     events[:] = events[2:]
     windows.clear()
     assert timing.device_ms(lambda: None, 2) is None and len(windows) == 3
+
+
+@pytest.mark.parametrize("has_layout", [True, False], ids=["core-matrices", "earlier-build"])
+def test_text_builds_get_the_weight_layout_they_take(monkeypatch, has_layout):
+    """A text-layer build with ``fused_text_layer_weight_layout`` is launched
+    on the block's ``with_text_kernel_layout`` matrices; one without it (an
+    earlier commit's) is handed them fragment-major, as it took them."""
+    class Lib:
+        pass
+
+    lib = Lib()
+    if has_layout:
+        lib.fused_text_layer_weight_layout = lambda: 1
+    monkeypatch.setattr(tf.ftl, "_lib", lambda: lib)
+    monkeypatch.setattr(tf._build, "_loaded", {})
+    monkeypatch.setattr(tf, "_fragment_major", False)  # restored after the test
+    calls = []
+    monkeypatch.setattr(tf.ftl, "_launch",
+                        lambda x, blk, h, m, eps, mats=None: calls.append(("launch", mats)))
+    monkeypatch.setattr(tf.ftl, "fused_text_layer",
+                        lambda x, blk, h, m: calls.append(("layer", blk["kernel"])))
+    tf.use({"fused_text_layer": lib})
+    blk, frag = {"kernel": "core matrices"}, "fragment-major"
+    tf.text_call(None, blk, frag, 2, None)
+    assert calls == ([("layer", "core matrices")] if has_layout else [("launch", frag)])
+
+
+def test_build_variants_builds_each_source_once(monkeypatch, tmp_path):
+    """Variants whose source is the same text (an unchanged rect layer
+    beside the parent's) share one library, built by one nvcc: two builds
+    writing the same file at once left it cut short."""
+    started = []
+
+    class Proc:
+        returncode = 0
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(tf._build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(tf._build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(tf.subprocess, "Popen", lambda cmd, **kw: started.append(cmd) or Proc())
+    monkeypatch.setattr(tf.ctypes, "CDLL", lambda path: path)
+    libs = tf.build_variants({"this": {"text": "new", "rect": "same"},
+                              "parent": {"text": "old", "rect": "same"}})
+    assert len(started) == 3
+    assert libs["this"]["rect"] == libs["parent"]["rect"]
+    assert libs["this"]["text"] != libs["parent"]["text"]
