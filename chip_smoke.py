@@ -2401,6 +2401,14 @@ def main() -> int:
         lambda: ra.rect_attention_reference(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v),
         2 * B * H * Lk * 4 * D, 4 * B * H * Lk * Lk * D)
+    # ViT-L/14@336px's RPO eval layer: 577 frozen keys, the two-pass route
+    B, H, Lq, Lk, D = 100, 16, 601, 577, 64
+    q, k, v = path_layout_qkv(gen, B, H, Lq, Lk, D, torch.bfloat16)
+    l14_times = time_attention(
+        "rect_attention (100,16,601,577,64) ViT-L/14@336px", lambda: ra.rect_attention(q, k, v),
+        lambda: ra.rect_attention_reference(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v),
+        2 * B * H * (Lq + Lk + Lk + Lq) * D, 4 * B * H * Lq * Lk * D)
     train_times = {}
     for label, (B, H, Lq, Lk, D) in train_shapes.items():
         q, k, v = train_layout_qkv(gen, B, H, Lq, Lk, D, torch.bfloat16)
@@ -2960,6 +2968,7 @@ def main() -> int:
         "max_abs_err": first_max_abs_err(selftest, "rect_attention"),
         **rect_attn_times,
         "square_197": sq_times,
+        "vit_l14_336_601x577": l14_times,
         "train_frozen_rows": train_times["train frozen rows"],
         "train_prompt_rows": train_times["train prompt rows"],
         "baseline_train_batch_32": train_times[f"baseline train batch {BASELINE_TRAIN_BATCH}"],

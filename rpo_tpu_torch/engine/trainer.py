@@ -138,6 +138,22 @@ def device_prefetch(iterator, device, depth: int = 2, keys=("img", "label", "mas
             pass
 
 
+def _waited(loader):
+    """The loader's batches, each wait for the next (the one that finds the
+    end too) in a ``loader_wait`` span."""
+    it = iter(loader)
+    try:
+        while True:
+            with tracing.span("loader_wait"):
+                batch = next(it, None)
+            if batch is None:
+                return
+            yield batch
+    finally:
+        if hasattr(it, "close"):  # an epoch left early stops the loader's producer
+            it.close()
+
+
 class TrainerBase:
     """Abstract trainer.  Subclasses implement build_model(),
     forward_backward(batch), model_inference(images), the checkpoint state
@@ -402,7 +418,7 @@ class TrainerBase:
                 group = []
                 t0 = time.time()
 
-            for batch in loader:
+            for batch in _waited(loader):
                 group.append(batch)
                 if len(group) == group_size:
                     flush()
@@ -417,7 +433,7 @@ class TrainerBase:
         else:
             # host batches: the trainer's step moves them to the device
             # (on the card through its graph's pinned staging buffers)
-            for self.batch_idx, batch in enumerate(loader):
+            for self.batch_idx, batch in enumerate(_waited(loader)):
                 data_t.append(time.time() - t0)
                 handle(self.forward_backward(batch))
                 t0 = time.time()

@@ -77,6 +77,14 @@ RN50x16 = CLIPConfig(
     vision_width=96, vision_patch_size=0,
     text_width=768, text_heads=12, text_layers=12,
 )
+# The largest tower OpenAI released (Radford et al. 2021, Table 20): 24
+# vision layers of width 1024 (16 heads of 64) over 14-pixel patches, a
+# 768-wide text tower of 12 heads; at 336 px its grid is 24 x 24, 577 rows.
+VIT_L14 = CLIPConfig(
+    embed_dim=768, image_resolution=224, vision_layers=24, vision_width=1024,
+    vision_patch_size=14, text_width=768, text_heads=12, text_layers=12,
+)
+VIT_L14_336 = dataclasses.replace(VIT_L14, image_resolution=336)
 # Test-size model: full structure, tiny dims (vision_width must be a
 # multiple of 64 because vision_heads = width // 64).
 TINY = CLIPConfig(
@@ -114,6 +122,8 @@ TINY_RN = CLIPConfig(
 ARCHS = {
     "ViT-B/16": VIT_B16,
     "ViT-B/32": VIT_B32,
+    "ViT-L/14": VIT_L14,
+    "ViT-L/14@336px": VIT_L14_336,
     "RN50": RN50,
     "RN101": RN101,
     "RN50x4": RN50x4,

@@ -7,7 +7,8 @@ Port of ``rpo_tpu/models/clip/pretrained.py``.  The order:
      for);
   2. ``$CLIP_CACHE_DIR`` or ``~/.cache/clip``: the OpenAI file name of the
      backbone (its SHA-256 checked against the published one, with a
-     warning on a mismatch), else an alternate format of it
+     warning on a mismatch; ViT-L/14 and ViT-L/14@336px unchecked, no
+     published hash being at hand), else an alternate format of it
      (``.safetensors``, ``.bin``, the HF repo's name for the ViTs);
   3. random weights from a seed, with a loud warning.
 
@@ -27,6 +28,8 @@ from .model import ARCHS, CLIPConfig, Params, cast_params, init_clip
 _FILENAMES = {
     "ViT-B/16": "ViT-B-16.pt",
     "ViT-B/32": "ViT-B-32.pt",
+    "ViT-L/14": "ViT-L-14.pt",
+    "ViT-L/14@336px": "ViT-L-14-336px.pt",
     "RN50": "RN50.pt",
     "RN101": "RN101.pt",
     "RN50x4": "RN50x4.pt",
@@ -38,6 +41,8 @@ _FILENAMES = {
 _HF_NAMES = {
     "ViT-B/16": "clip-vit-base-patch16",
     "ViT-B/32": "clip-vit-base-patch32",
+    "ViT-L/14": "clip-vit-large-patch14",
+    "ViT-L/14@336px": "clip-vit-large-patch14-336",
 }
 
 # the published SHA-256 of each OpenAI release file (the path element of
@@ -83,10 +88,14 @@ def find_checkpoint(backbone_name: str) -> Optional[str]:
         return None
     # a cached file at the OpenAI name is checked against the published
     # SHA-256 and loaded anyway: it may be deliberate custom weights, and
-    # random weights would be worse than trying it
+    # random weights would be worse than trying it.  The ViT-L files have
+    # no hash here to check against, and load unchecked.
+    published = _SHA256.get(backbone_name)
+    if published is None:
+        return path
     with open(path, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()
-    if digest != _SHA256[backbone_name]:
+    if digest != published:
         print(f"(!) {path} does not match the published SHA256 for this backbone (custom "
               "weights, or a truncated download)")
     return path

@@ -13,7 +13,9 @@ A bf16 tensor goes to the tensor-core kernel, which takes K and V of up to
 SIMT kernel, which stages the scores too (273 rows at 64, 153 at 128).
 There is no fallback from the kernel to the plain version.  ``launches``
 counts the kernel launches, so a run can show that its path went through
-the kernel.  The backward is a plain-PyTorch recompute, as in the JAX
+the kernel; each bf16 launch also stamps its route into the port's
+record (``tracing.count``): ``rect_two_pass`` where ``two_pass(Lk, D)``,
+else ``rect_registers``.  The backward is a plain-PyTorch recompute, as in the JAX
 package, which has no backward kernel either.
 
 The plain math (``_softmax_attend``, ``_attention_bwd_math``) and the
@@ -27,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .. import tracing
 from . import _build
 
 launches = 0  # kernel launches since the count was last set to 0
@@ -36,6 +39,21 @@ _HEAD_DIMS = (32, 64, 128)
 _MAX_GRID_YZ = 65535
 _ERR_SHARED_MEMORY = -3  # kErrSharedMemory in csrc/rect_attention.cu
 _MAX_SHARED = 232448  # bytes of shared memory one block can take on the H100 (sm_90)
+_TILE = 16  # key columns of a score tile (kTile in csrc/attention_tc.cuh)
+
+
+def max_tiles(D: int) -> int:
+    """The widest score row, in 16-column tiles, that a warp of the bf16
+    kernel holds in registers: ``max_tiles(D)`` of
+    ``csrc/attention_tc.cuh``, which a change to either goes into too."""
+    return 8 if D == 128 else 16
+
+
+def two_pass(Lk: int, D: int) -> bool:
+    """Whether a bf16 launch over ``Lk`` keys at head dim ``D`` takes the
+    kernel's two-pass route: its padded key width is wider than
+    ``max_tiles(D)`` tiles, so the scores are formed twice."""
+    return -(-Lk // _TILE) > max_tiles(D)
 
 
 def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -197,6 +215,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if rc != 0:
         raise _launch_error(lib, "rect_attention", rc, Lk, q)
     launches += 1
+    if q.dtype == torch.bfloat16:
+        tracing.count("rect_two_pass" if two_pass(Lk, D) else "rect_registers")
     return out
 
 

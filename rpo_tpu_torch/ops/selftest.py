@@ -109,11 +109,16 @@ RECT_CHECKS = (
     ("head dim 32, Lk 257", (2, 4, 17, 257, 32), BF16, False),
     ("head dim 128, Lk 16", (2, 4, 17, 16, 128), BF16, False),
     ("head dim 128, Lk 129: the two-pass route", (2, 4, 33, 129, 128), BF16, False),
+    # ViT-L/14@336px's RPO eval layer: 577 frozen keys, the two-pass route
+    ("ViT-L/14@336px eval layer, path layout", (100, 16, 601, 577, 64), BF16, False),
+    ("ViT-L/14@336px eval layer, paired adapter", (100, 8, 601, 577, 128), BF16, True),
 )
 # the RPO train step's split vision tower: the frozen rows, and the K
 # prompt rows over them
 TRAIN_SHAPES = (("train frozen rows", (TRAIN_BATCH, 12, 197, 197, 64)),
-                ("train prompt rows", (TRAIN_BATCH, 12, K, 197, 64)))
+                ("train prompt rows", (TRAIN_BATCH, 12, K, 197, 64)),
+                ("ViT-L/14@336px train frozen rows", (TRAIN_BATCH, 16, 577, 577, 64)),
+                ("ViT-L/14@336px train prompt rows", (TRAIN_BATCH, 16, K, 577, 64)))
 # (label, (B, H, L, D), bias kind, dtype); short L: several (b, h) a block
 # (4 at L = 16, 2 at 24), B*H not a multiple of that, the last block ragged
 MASKED_CHECKS = (

@@ -86,8 +86,23 @@ def _folder_split(w: _Writer, image_dir: str, folders: Sequence[str], per_class:
     return Layout([names.get(f, f) for f in sorted(folders)], *map(list, zip(*counts)))
 
 
-CALTECH_CLASSES = ["Faces", "Leopards", "Motorbikes", "accordion", "airplanes", "anchor",
-                   "ant", "barrel", "bass", "beaver", "binocular", "bonsai"]
+# 101_ObjectCategories' class folders in sorted order (the two ignored ones
+# aside)
+CALTECH_CLASSES = [
+    "Faces", "Leopards", "Motorbikes", "accordion", "airplanes", "anchor", "ant", "barrel",
+    "bass", "beaver", "binocular", "bonsai", "brain", "brontosaurus", "buddha", "butterfly",
+    "camera", "cannon", "car_side", "ceiling_fan", "cellphone", "chair", "chandelier",
+    "cougar_body", "cougar_face", "crab", "crayfish", "crocodile", "crocodile_head", "cup",
+    "dalmatian", "dollar_bill", "dolphin", "dragonfly", "electric_guitar", "elephant", "emu",
+    "euphonium", "ewer", "ferry", "flamingo", "flamingo_head", "garfield", "gerenuk",
+    "gramophone", "grand_piano", "hawksbill", "headphone", "hedgehog", "helicopter", "ibis",
+    "inline_skate", "joshua_tree", "kangaroo", "ketch", "lamp", "laptop", "llama", "lobster",
+    "lotus", "mandolin", "mayfly", "menorah", "metronome", "minaret", "nautilus", "octopus",
+    "okapi", "pagoda", "panda", "pigeon", "pizza", "platypus", "pyramid", "revolver", "rhino",
+    "rooster", "saxophone", "schooner", "scissors", "scorpion", "sea_horse", "snoopy",
+    "soccer_ball", "stapler", "starfish", "stegosaurus", "stop_sign", "strawberry", "sunflower",
+    "tick", "trilobite", "umbrella", "watch", "water_lilly", "wheelchair", "wild_cat",
+    "windsor_chair", "wrench", "yin_yang"]
 
 
 def caltech101(root: str, w: _Writer, n_classes: int = 4, per_class: int = 40) -> Layout:

@@ -1,4 +1,4 @@
-"""Spans inside the port's train dispatch, on the profiler's clock.
+"""Spans of the port's train loop and dispatch, and counters, on the profiler's clock.
 
 ``span(name)`` marks one stretch of the host's work.  There is no switch:
 
@@ -27,6 +27,22 @@ The spans, one a call each:
   stage_copy      the rest of ``_load``: the staging copies, the
                   non-blocking copies to the device, the event
   replay          ``StepGraph.run``: ``graph.replay()``
+  loader_wait     ``engine/trainer.py`` ``_waited``: the epoch loop's wait
+                  for the loader's next batch (and the one that finds the
+                  epoch's end), outside ``train_dispatch``
+
+``count(name)`` stamps an instant row into the same record (start equal
+to end, the innermost open span as its parent, marked ``profiled`` as a
+span is), entering no ``record_function``.  The counters, one a launch
+made from Python:
+
+  rect_two_pass   ``ops/rect_attention.py``: a bf16 launch whose padded key
+                  width exceeds the widest score row a warp holds in
+                  registers (the kernel's two-pass route)
+  rect_registers  every other bf16 launch of the rect kernel
+
+A replay of a captured CUDA graph runs its launches without passing
+through Python and counts none of them.
 """
 from __future__ import annotations
 
@@ -85,6 +101,14 @@ class span:
             self.event.__exit__(*exc)
         self.row[2] = time_ns()
         _local.stack.pop()
+
+
+def count(name: str) -> None:
+    """Stamp one ``name`` event into the record: an instant row."""
+    stack = _local.__dict__.get("stack")
+    now = time_ns()
+    _record.append([name, now, now, stack[-1] if stack else -1,
+                    torch.autograd._profiler_enabled(), next(_ids)])
 
 
 def spans() -> List[Span]:

@@ -87,6 +87,12 @@ BF16 = torch.bfloat16
         # frozen rows, and the 24 prompt rows over them
         ((4, 12, 197, 197, 64), BF16, 2e-2, "train"),
         ((4, 12, 24, 197, 64), BF16, 2e-2, "train"),
+        # ViT-L/14@336px: the RPO eval layer over 577 frozen keys (37 score
+        # tiles, the two-pass route at one block an SM) in the paired
+        # adapter's layout, and the train split tower's two calls
+        ((100, 16, 601, 577, 64), BF16, 2e-2, "paired"),
+        ((4, 16, 577, 577, 64), BF16, 2e-2, "train"),
+        ((4, 16, 24, 577, 64), BF16, 2e-2, "train"),
     ],
 )
 def test_kernel_matches_plain_version_on_gpu(shape, dtype, tol, layout):
@@ -98,6 +104,9 @@ def test_kernel_matches_plain_version_on_gpu(shape, dtype, tol, layout):
         q, k, v = _path_layout(gen, B, H, Lq, Lk, D, dtype)
     elif layout == "train":
         q, k, v = _train_layout(gen, B, H, Lq, Lk, D, dtype)
+    elif layout == "paired":  # pair-heads of 2 * D lanes, as rect_attention_paired takes them
+        q, k, v = (ra.unpair_heads(ra.pair_heads(t), D) for t in _path_layout(
+            gen, B, H, Lq, Lk, D, dtype))
     else:
         q, k, v = (
             torch.randn(B, H, n, D, generator=gen, device="cuda").to(dtype) for n in (Lq, Lk, Lk)
@@ -490,6 +499,41 @@ def test_rpo_train_step_kernels_against_plain_on_gpu():
         a = rpo.train_step(images, labels, mask, 0.01)[0].item()
         b = plain.train_step(images, labels, mask, 0.01, **refs)[0].item()
         assert abs(a - b) <= 5e-2
+
+
+@pytest.mark.gpu
+def test_rpo_vit_l14_336_train_steps_against_the_reference_on_gpu():
+    """RPO's train step on ViT-L/14@336px at its published widths, as the
+    benchmark's train loop takes it (``benchmark/kinds/train.py``: three
+    ``forward_backward`` calls, the first capturing the step graph, each
+    step's split tower 24 rect launches at (4, 16, 577, 577, 64) and 24 at
+    (4, 16, 24, 577, 64), every one on the two-pass route), against the
+    float32 reference's steps from the same state on the same batches: the
+    loss, first gradient and update gaps of ``benchmark/compare.py`` within
+    the ViT-B/16 train cell's limits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from benchmark import compare
+    from benchmark.harness import Cell
+    from benchmark.kinds import train
+    from benchmark.reference import precision
+    from benchmark.spec import Spec
+    from rpo_tpu_torch import tracing
+
+    spec = Spec()
+    cell = Cell("rpo_vit_l14_336-train_b4", spec.config("rpo_vit_l14_336"),
+                spec.traffic("train_b4"), spec.limits("rpo_vit_b16-train_b4"), 2147483999,
+                torch.device("cuda"), spec.method("rpo"), train)
+    tracing.reset()
+    rect0 = ra.launches
+    session = train.Session(cell)
+    launched = ra.launches - rect0
+    routes = [s.name for s in tracing.spans() if s.name.startswith("rect_")]
+    assert launched >= 48 and launched % 48 == 0  # the eager steps, the graph's warm-up, capture
+    assert routes == ["rect_two_pass"] * launched
+    session.release()
+    numbers = session.check(precision.EXACT)
+    assert compare.judge(numbers, cell.limits), numbers
 
 
 @pytest.mark.gpu

@@ -142,10 +142,18 @@ JAX_ONLY = [("compare", "rect_attention", (4, 6, 221, 197, 128)),  # paired back
             ("compare", "device_train_preprocess", (4, 64, 64, 224))]
 
 
+# ViT-L/14@336px's rect calls: RPO eval over 577 frozen keys (path layout
+# and the paired adapter), the train split tower's two
+VIT_L14 = [("compare", "rect_attention", s) for s in (
+    (100, 16, 601, 577, 64), (100, 8, 601, 577, 128), (4, 16, 577, 577, 64),
+    (4, 16, 24, 577, 64))]
+
+
 def test_the_table_is_phase_3s_checks_and_the_jax_selftests():
     table = st.checks(device="cpu")  # builds nothing, runs nothing
-    assert Counter((c.kind, c.kernel, c.shape) for c in table) == Counter(PHASE3 + JAX_ONLY)
-    assert len({c.name for c in table}) == len(table) == 75
+    assert Counter((c.kind, c.kernel, c.shape) for c in table) == Counter(
+        PHASE3 + JAX_ONLY + VIT_L14)
+    assert len({c.name for c in table}) == len(table) == 79
     assert all(c.name.startswith(f"kernel {c.kernel} ") for c in table)
     for c in table:  # the bounds phase 3 held each to
         bf16 = "float32" not in c.name

@@ -191,7 +191,7 @@ def test_the_engines_profiled_epoch_prints_its_spans(tmp_path):
 # -- the benchmark's readers, on hand-made records ------------------------------
 
 TRAIN_CELLS = ["rpo_vit_b16-train_b4", "rpo_vit_b16-train_b4_n500"]
-EVAL_CELLS = ["cocoop_vit_b16-eval_b100", "rpo_vit_b16-eval_b100"]
+EVAL_CELLS = ["cocoop_vit_b16-eval_b100", "rpo_vit_b16-eval_b100", "rpo_vit_l14_336-eval_b100"]
 # metric: (kind, ms of the window's first step, cells, layer)
 READERS = {
     "stage_wait_ms.train": ("train", 1.0, TRAIN_CELLS, "Engine and staging"),
