@@ -2401,7 +2401,7 @@ def main() -> int:
         lambda: ra.rect_attention_reference(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v),
         2 * B * H * Lk * 4 * D, 4 * B * H * Lk * Lk * D)
-    # ViT-L/14@336px's RPO eval layer: 577 frozen keys, the two-pass route
+    # ViT-L/14@336px's RPO eval layer: 577 frozen keys, split rows
     B, H, Lq, Lk, D = 100, 16, 601, 577, 64
     q, k, v = path_layout_qkv(gen, B, H, Lq, Lk, D, torch.bfloat16)
     l14_times = time_attention(

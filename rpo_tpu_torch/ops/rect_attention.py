@@ -11,11 +11,23 @@ q (B, H, Lq, D) against k, v (B, H, Lk, D):
 A bf16 tensor goes to the tensor-core kernel, which takes K and V of up to
 768 rows at head dim 64 (1408 at 32, 384 at 128); an f32 tensor to the
 SIMT kernel, which stages the scores too (273 rows at 64, 153 at 128).
+The bf16 kernel takes one of three routes, by the shape alone:
+
+- one pass, a warp holding a whole score row in registers: up to
+  ``max_tiles(D)`` 16-column tiles (256 keys at head dim 32 and 64, 128
+  at 128), every ViT-B/16 and text shape;
+- split rows, ``split_row(Lk, D)``: at head dim 64, rows of 257 to 624
+  keys (ViT-L/14@336px's 577) are split across the three warps of a
+  group, each holding a slice of at most 13 tiles, and formed once;
+- two passes, ``two_pass(Lk, D)``: any wider row (up to 768 keys at head
+  dim 64, and past 256 at 32, past 128 at 128), whose scores are formed
+  twice.
+
 There is no fallback from the kernel to the plain version.  ``launches``
 counts the kernel launches, so a run can show that its path went through
 the kernel; each bf16 launch also stamps its route into the port's
-record (``tracing.count``): ``rect_two_pass`` where ``two_pass(Lk, D)``,
-else ``rect_registers``.  The backward is a plain-PyTorch recompute, as in the JAX
+record (``tracing.count``): ``rect_split_row``, ``rect_two_pass`` or
+``rect_registers``.  The backward is a plain-PyTorch recompute, as in the JAX
 package, which has no backward kernel either.
 
 The plain math (``_softmax_attend``, ``_attention_bwd_math``) and the
@@ -40,6 +52,12 @@ _MAX_GRID_YZ = 65535
 _ERR_SHARED_MEMORY = -3  # kErrSharedMemory in csrc/rect_attention.cu
 _MAX_SHARED = 232448  # bytes of shared memory one block can take on the H100 (sm_90)
 _TILE = 16  # key columns of a score tile (kTile in csrc/attention_tc.cuh)
+# the split-row route's geometry (kSplitSlice, kSplitWarps, kSplitGroups in
+# csrc/attention_tc.cuh): score tiles a warp holds at most, warps of a
+# group, groups of a block
+_SPLIT_SLICE = 13
+_SPLIT_WARPS = 3
+_SPLIT_GROUPS = 4
 
 
 def max_tiles(D: int) -> int:
@@ -49,11 +67,31 @@ def max_tiles(D: int) -> int:
     return 8 if D == 128 else 16
 
 
+def _split_bytes(Lk: int, D: int) -> int:
+    """One split-row block's shared memory (``split_smem_bytes``): f32
+    partial outputs of two warps of each group and the groups' row maxima
+    and sums, then bf16: two Q tiles of each group, K and V."""
+    ld, nkp = D + 8, -(-Lk // _TILE) * _TILE
+    per_group = (_SPLIT_WARPS - 1) * _TILE * D + 2 * _SPLIT_WARPS * _TILE
+    return 4 * _SPLIT_GROUPS * per_group + 2 * (_SPLIT_GROUPS * 2 * _TILE * ld + 2 * nkp * ld)
+
+
+def split_row(Lk: int, D: int) -> bool:
+    """Whether a bf16 launch over ``Lk`` keys at head dim ``D`` takes the
+    kernel's split-row route (``split_row`` of ``csrc/attention_tc.cuh``):
+    head dim 64, a padded key width wider than ``max_tiles(D)`` tiles and
+    no wider than a group's warps hold, in one block's shared memory."""
+    nkt = -(-Lk // _TILE)
+    return (D == 64 and max_tiles(D) < nkt <= _SPLIT_WARPS * _SPLIT_SLICE
+            and _split_bytes(Lk, D) <= _MAX_SHARED)
+
+
 def two_pass(Lk: int, D: int) -> bool:
     """Whether a bf16 launch over ``Lk`` keys at head dim ``D`` takes the
     kernel's two-pass route: its padded key width is wider than
-    ``max_tiles(D)`` tiles, so the scores are formed twice."""
-    return -(-Lk // _TILE) > max_tiles(D)
+    ``max_tiles(D)`` tiles and the split-row route does not take it, so the
+    scores are formed twice."""
+    return -(-Lk // _TILE) > max_tiles(D) and not split_row(Lk, D)
 
 
 def _softmax_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,8 +177,11 @@ def _launch_error(lib: ctypes.CDLL, name: str, rc: int, Lk: int, q: torch.Tensor
 def _shared_bytes(dtype: torch.dtype, Lk: int, D: int, pack: int = 1) -> int:
     """One block's shared memory in ``csrc/rect_attention.cu``
     (``tc_smem_bytes`` of ``csrc/attention_tc.cuh`` for bf16 with ``pack``
-    (b, h) a block, ``smem_bytes`` for f32), which checks it again against
-    the card's limit: a change to either formula goes into both."""
+    (b, h) a block, ``split_smem_bytes`` on the split-row route, which
+    takes one, ``smem_bytes`` for f32), which checks it again against the
+    card's limit: a change to either formula goes into both."""
+    if dtype == torch.bfloat16 and split_row(Lk, D):
+        return _split_bytes(Lk, D)
     if dtype == torch.bfloat16:  # K and V padded to 16 rows, one 16-row Q tile per warp
         ld, nkp = D + 8, -(-Lk // 16) * 16
         return 2 * (pack * 2 * nkp * ld + 4 * 16 * ld)
@@ -216,7 +257,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         raise _launch_error(lib, "rect_attention", rc, Lk, q)
     launches += 1
     if q.dtype == torch.bfloat16:
-        tracing.count("rect_two_pass" if two_pass(Lk, D) else "rect_registers")
+        tracing.count("rect_split_row" if split_row(Lk, D)
+                      else "rect_two_pass" if two_pass(Lk, D) else "rect_registers")
     return out
 
 

@@ -87,9 +87,11 @@ U8_TOL = 2.01 / (min(CLIP_STD) * 255.0)
 
 BF16, F32 = torch.bfloat16, torch.float32
 # (label, (B, H, Lq, Lk, D), dtype, paired): the eval towers, then the
-# kernel's edges: Lq 1 and 17, Lk either side of the 16-column pad and of
-# the widest row held in registers (256 | 257 at head dim <= 64, 128 | 129
-# at 128), head dims 32 and 128
+# kernel's edges: Lq 1 and 17, Lk either side of the 16-column pad, of
+# the widest row one warp holds in registers (256 | 257 at head dim <= 64,
+# 128 | 129 at 128) and of the widest row split across a group's warps at
+# head dim 64 (624 | 625), a ragged last query tile over split rows, head
+# dims 32 and 128
 RECT_CHECKS = (
     ("eval layer, path layout", (100, 12, 221, 197, 64), BF16, False),
     ("eval layer, paired adapter", (100, 6, 221, 197, 128), BF16, True),
@@ -99,19 +101,23 @@ RECT_CHECKS = (
     ("eval layer f32", (2, 12, 221, 197, 64), F32, False),
     ("head dim 128", (2, 4, 221, 197, 128), BF16, False),
     ("head dim 32", (2, 3, 70, 130, 32), BF16, False),
-    ("Lk over 256: two score passes", (2, 2, 33, 300, 64), BF16, False),
+    ("Lk 300: split rows", (2, 2, 33, 300, 64), BF16, False),
     ("Lq 1, Lk 1", (2, 3, 1, 1, 64), BF16, False),
     ("Lq 17, Lk 16: one score tile", (2, 3, 17, 16, 64), BF16, False),
     ("Lk 17: one column into a second tile", (2, 3, 17, 17, 64), BF16, False),
     ("Lk 256: the widest row in registers", (2, 2, 17, 256, 64), BF16, False),
-    ("Lk 257: the two-pass route", (2, 2, 17, 257, 64), BF16, False),
+    ("Lk 257: the first split row", (2, 2, 17, 257, 64), BF16, False),
     ("Lq 1, Lk 300", (2, 2, 1, 300, 64), BF16, False),
     ("head dim 32, Lk 257", (2, 4, 17, 257, 32), BF16, False),
     ("head dim 128, Lk 16", (2, 4, 17, 16, 128), BF16, False),
     ("head dim 128, Lk 129: the two-pass route", (2, 4, 33, 129, 128), BF16, False),
-    # ViT-L/14@336px's RPO eval layer: 577 frozen keys, the two-pass route
+    # ViT-L/14@336px's RPO eval layer: 577 frozen keys, split rows
     ("ViT-L/14@336px eval layer, path layout", (100, 16, 601, 577, 64), BF16, False),
     ("ViT-L/14@336px eval layer, paired adapter", (100, 8, 601, 577, 128), BF16, True),
+    ("Lk 624: the widest split row", (2, 2, 33, 624, 64), BF16, False),
+    ("Lk 625: past the split rows, two passes", (2, 2, 33, 625, 64), BF16, False),
+    ("Lq 601 over 577 keys: split rows, a ragged last query tile", (2, 2, 601, 577, 64), BF16,
+     False),
 )
 # the RPO train step's split vision tower: the frozen rows, and the K
 # prompt rows over them
@@ -137,6 +143,8 @@ MASKED_CHECKS = (
     ("L 24, B*H 9, per-batch, one row fully masked", (3, 3, 24, 64), "full row", BF16),
     ("L 77, B*H 21, per-class text mask", (7, 3, 77, 64), "text", BF16),
     ("L 16, head dim 128, B*H 15", (3, 5, 16, 128), "causal", BF16),
+    ("L 577, split rows, shared causal", (2, 2, 577, 64), "causal", BF16),
+    ("L 300, split rows, per-batch, one row fully masked", (3, 2, 300, 64), "full row", BF16),
 )
 SHARED_BIASES = ("causal", "visual")
 # (label, (N, L, d, heads))
@@ -397,6 +405,15 @@ def checks(tol: float = BF16_TOL, device="cuda",
     @add(name, "rect_attention", (100, 12, 197, 197, 64), CONTRACT_RATIO, "contract")
     def rect_contract(name=name):
         q, k, v = fused_qkv(generator(name, device), 100, 12, 197, 64, BF16, device)
+        return contract_reading(lambda: slot["rect_attention"](q, k, v),
+                                lambda: ra.rect_attention_reference(q, k, v), q, k, v)
+
+    name = ("kernel rect_attention (32,16,601,577,64) bf16, split rows, against an f64 "
+            "evaluation of its contract")
+
+    @add(name, "rect_attention", (32, 16, 601, 577, 64), CONTRACT_RATIO, "contract")
+    def rect_split_contract(name=name):
+        q, k, v = path_layout_qkv(generator(name, device), 32, 16, 601, 577, 64, BF16, device)
         return contract_reading(lambda: slot["rect_attention"](q, k, v),
                                 lambda: ra.rect_attention_reference(q, k, v), q, k, v)
 

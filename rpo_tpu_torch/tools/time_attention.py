@@ -3,20 +3,25 @@ process, at the bf16 attention kernels' main-path shapes.
 
     python3 -m rpo_tpu_torch.tools.time_attention \\
         [--source LABEL=PATH.cu ...] [--d64-widths LABEL=W,W,... ...] \\
-        [--rounds 2] [--json PATH]
+        [--shape SUBSTRING ...] [--rounds 2] [--json PATH]
 
 The variants: "this", the checkout's source; each ``--source``, another
 source with the same C entry points (an earlier commit's, written out
 with ``git show``); each ``--d64-widths``, the checkout's source with the
 score widths (16-column tiles) of its D = 64 bf16 instantiations cut to
 the set given, a shape taking the narrowest that holds its tiles (the set
-must hold 16, the widest row, which the two-pass route needs).  All are
+must hold 16, the widest row, which the two-pass route needs; the
+split-row route, chosen before those widths, stays in every variant).  All are
 built at once with the package's nvcc flags and run under the same
 wrappers (``ops/rect_attention.py``, ``ops/masked_attention.py``).
 
 The shapes: rect (100, 12, 221, 197, 64) in the eval tower's layout,
-(100, 12, 197, 197, 64) as the square towers hand it over, and masked
-(51, 8, L, L, 64) with the shared causal bias at L = 77, 24 and 16.  At
+(100, 12, 197, 197, 64) as the square towers hand it over, masked
+(51, 8, L, L, 64) with the shared causal bias at L = 77, 24 and 16, and
+ViT-L/14@336px's rect calls: (100, 16, 601, 577, 64) in the eval tower's
+layout, and the train split tower's (4, 16, 577, 577, 64) and
+(4, 16, 24, 577, 64).  ``--shape`` keeps those whose label holds one of
+the substrings given.  At
 each shape every variant is first held to the plain version (2e-2) and
 compared with the checkout's build (``torch.equal``), then the variants
 and SDPA are timed in order and in reverse, ``--rounds``
@@ -113,6 +118,17 @@ def shapes(gen: torch.Generator):
     q, k, v = heads(torch.randn(B, Lk, 3 * H * D, generator=gen, device="cuda").to(bf16),
                     B, Lk, 3, H, D)
     out.append(("rect (100,12,197,197,64)", (q, k, v), None))
+    B, H, Lq, Lk = 100, 16, 601, 577
+    q = heads(torch.randn(B, Lq, H * D, generator=gen, device="cuda").to(bf16), B, Lq, 1, H, D)[0]
+    k, v = heads(torch.randn(B, Lk, 2 * H * D, generator=gen, device="cuda").to(bf16),
+                 B, Lk, 2, H, D)
+    out.append(("rect (100,16,601,577,64)", (q, k, v), None))
+    B = 4
+    q, k, v = heads(torch.randn(B, Lk, 3 * H * D, generator=gen, device="cuda").to(bf16),
+                    B, Lk, 3, H, D)
+    out.append(("rect (4,16,577,577,64)", (q, k, v), None))
+    q = heads(torch.randn(B, 24, H * D, generator=gen, device="cuda").to(bf16), B, 24, 1, H, D)[0]
+    out.append(("rect (4,16,24,577,64)", (q, k, v), None))
     B, H = 51, 8
     for L in (77, 24, 16):
         q, k, v = heads(torch.randn(B, L, 3 * H * D, generator=gen, device="cuda").to(bf16),
@@ -136,6 +152,7 @@ def main(argv: List[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--source", action="append", default=[], metavar="LABEL=PATH.cu")
     ap.add_argument("--d64-widths", action="append", default=[], metavar="LABEL=W,W,...")
+    ap.add_argument("--shape", action="append", default=[], metavar="SUBSTRING")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--json", type=Path)
     args = ap.parse_args(argv)
@@ -160,6 +177,8 @@ def main(argv: List[str] | None = None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     readings = []
     for label, kernel, plain, sdpa in shapes(gen):
+        if args.shape and not any(part in label for part in args.shape):
+            continue
         ref = plain().float()
         outs = {}
         for name, lib in libs.items():

@@ -36,9 +36,13 @@ to end, the innermost open span as its parent, marked ``profiled`` as a
 span is), entering no ``record_function``.  The counters, one a launch
 made from Python:
 
+  rect_split_row  ``ops/rect_attention.py``: a bf16 launch whose score row
+                  is split across the warps of a group (the kernel's
+                  split-row route: head dim 64, 257 to 624 keys)
   rect_two_pass   ``ops/rect_attention.py``: a bf16 launch whose padded key
                   width exceeds the widest score row a warp holds in
-                  registers (the kernel's two-pass route)
+                  registers, and which the split-row route does not take
+                  (the kernel's two-pass route)
   rect_registers  every other bf16 launch of the rect kernel
 
 A replay of a captured CUDA graph runs its launches without passing

@@ -65,11 +65,12 @@ BF16 = torch.bfloat16
         ((2, 12, 221, 197, 64), torch.float32, 1e-5, "contiguous"),
         ((2, 4, 221, 197, 128), BF16, 2e-2, "contiguous"),
         ((2, 3, 70, 130, 32), BF16, 2e-2, "contiguous"),
-        ((2, 2, 33, 300, 64), BF16, 2e-2, "contiguous"),  # Lk > 256: the two-pass route
+        ((2, 2, 33, 300, 64), BF16, 2e-2, "contiguous"),  # Lk > 256: split rows
         # the bf16 kernel's edges: Lq 1 and 17 (one row, one row into a
-        # second tile), Lk either side of the 16-column pad (1, 16, 17) and
-        # of the widest row held in registers (256 | 257 at D <= 64, 128 |
-        # 129 at D = 128), the path's strided views, head dims 32 and 128
+        # second tile), Lk either side of the 16-column pad (1, 16, 17), of
+        # the widest row one warp holds in registers (256 | 257 at D <= 64,
+        # 128 | 129 at D = 128) and of the widest split row (624 | 625 at
+        # D = 64), the path's strided views, head dims 32 and 128
         ((2, 3, 1, 1, 64), BF16, 2e-2, "contiguous"),
         ((2, 3, 17, 16, 64), BF16, 2e-2, "contiguous"),
         ((2, 3, 17, 17, 64), BF16, 2e-2, "path"),
@@ -83,13 +84,18 @@ BF16 = torch.bfloat16
         ((2, 4, 17, 128, 128), BF16, 2e-2, "path"),
         ((2, 4, 33, 129, 128), BF16, 2e-2, "path"),
         ((2, 4, 17, 300, 128), BF16, 2e-2, "path"),
+        ((2, 2, 33, 624, 64), BF16, 2e-2, "path"),
+        ((2, 2, 33, 625, 64), BF16, 2e-2, "path"),
+        ((2, 2, 601, 577, 64), BF16, 2e-2, "path"),  # split rows, a ragged last query tile
         # the split vision tower of the RPO train step at batch 4: the
         # frozen rows, and the 24 prompt rows over them
         ((4, 12, 197, 197, 64), BF16, 2e-2, "train"),
         ((4, 12, 24, 197, 64), BF16, 2e-2, "train"),
         # ViT-L/14@336px: the RPO eval layer over 577 frozen keys (37 score
-        # tiles, the two-pass route at one block an SM) in the paired
-        # adapter's layout, and the train split tower's two calls
+        # tiles, split rows: 12 + 12 + 13 tiles across a group's three
+        # warps) in the path's and the paired adapter's layouts, and the
+        # train split tower's two calls
+        ((100, 16, 601, 577, 64), BF16, 2e-2, "path"),
         ((100, 16, 601, 577, 64), BF16, 2e-2, "paired"),
         ((4, 16, 577, 577, 64), BF16, 2e-2, "train"),
         ((4, 16, 24, 577, 64), BF16, 2e-2, "train"),
@@ -118,6 +124,33 @@ def test_kernel_matches_plain_version_on_gpu(shape, dtype, tol, layout):
     assert bool(torch.isfinite(got).all())
     err = (got.float() - ra.rect_attention_reference(q, k, v).float()).abs().max().item()
     assert err <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,route", [
+    ((2, 2, 17, 256, 64), "rect_registers"),
+    ((2, 2, 17, 257, 64), "rect_split_row"),
+    ((100, 16, 601, 577, 64), "rect_split_row"),
+    ((2, 2, 33, 624, 64), "rect_split_row"),
+    ((2, 2, 33, 625, 64), "rect_two_pass"),
+    ((2, 4, 33, 129, 128), "rect_two_pass"),
+])
+def test_each_route_gives_the_same_bits_twice_on_gpu(shape, route):
+    """The route each width takes, by its counter, and two launches on the
+    same inputs equal bit for bit: no route uses atomics, and the split
+    rows add their partial outputs in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from rpo_tpu_torch import tracing
+
+    B, H, Lq, Lk, D = shape
+    q, k, v = _path_layout(torch.Generator(device="cuda").manual_seed(1), B, H, Lq, Lk, D, BF16)
+    tracing.reset()
+    first = ra.rect_attention(q, k, v)
+    second = ra.rect_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert [s.name for s in tracing.spans()] == [route] * 2
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
@@ -191,6 +224,12 @@ def _bias(kind, B, L):
         ((7, 3, 77, 64), "per-batch, one row fully masked", torch.bfloat16, 2e-2),
         ((5, 3, 16, 32), "per-class text mask", torch.bfloat16, 2e-2),
         ((3, 5, 16, 128), "shared causal", torch.bfloat16, 2e-2),
+        # wide rows: split across a group's warps (257 to 624 keys), then
+        # two passes
+        ((2, 2, 577, 64), "shared causal", torch.bfloat16, 2e-2),
+        ((3, 2, 300, 64), "per-batch, one row fully masked", torch.bfloat16, 2e-2),
+        ((2, 3, 624, 64), "per-class text mask", torch.bfloat16, 2e-2),
+        ((2, 2, 625, 64), "shared causal", torch.bfloat16, 2e-2),
     ],
 )
 def test_masked_kernel_matches_plain_version_on_gpu(shape, kind, dtype, tol):
@@ -507,7 +546,7 @@ def test_rpo_vit_l14_336_train_steps_against_the_reference_on_gpu():
     benchmark's train loop takes it (``benchmark/kinds/train.py``: three
     ``forward_backward`` calls, the first capturing the step graph, each
     step's split tower 24 rect launches at (4, 16, 577, 577, 64) and 24 at
-    (4, 16, 24, 577, 64), every one on the two-pass route), against the
+    (4, 16, 24, 577, 64), every one on the split-row route), against the
     float32 reference's steps from the same state on the same batches: the
     loss, first gradient and update gaps of ``benchmark/compare.py`` within
     the ViT-B/16 train cell's limits."""
@@ -530,7 +569,7 @@ def test_rpo_vit_l14_336_train_steps_against_the_reference_on_gpu():
     launched = ra.launches - rect0
     routes = [s.name for s in tracing.spans() if s.name.startswith("rect_")]
     assert launched >= 48 and launched % 48 == 0  # the eager steps, the graph's warm-up, capture
-    assert routes == ["rect_two_pass"] * launched
+    assert routes == ["rect_split_row"] * launched
     session.release()
     numbers = session.check(precision.EXACT)
     assert compare.judge(numbers, cell.limits), numbers

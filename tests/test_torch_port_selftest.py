@@ -147,13 +147,20 @@ JAX_ONLY = [("compare", "rect_attention", (4, 6, 221, 197, 128)),  # paired back
 VIT_L14 = [("compare", "rect_attention", s) for s in (
     (100, 16, 601, 577, 64), (100, 8, 601, 577, 128), (4, 16, 577, 577, 64),
     (4, 16, 24, 577, 64))]
+# the split-row route's edges: its widest row and one key past it, a ragged
+# last query tile, its contract at ViT-L/14@336px's shape, and wide biased
+# rows
+SPLIT_ROWS = ([("compare", "rect_attention", s) for s in (
+    (2, 2, 33, 624, 64), (2, 2, 33, 625, 64), (2, 2, 601, 577, 64))]
+    + [("contract", "rect_attention", (32, 16, 601, 577, 64))]
+    + [("compare", "masked_attention", s) for s in ((2, 2, 577, 577, 64), (3, 2, 300, 300, 64))])
 
 
 def test_the_table_is_phase_3s_checks_and_the_jax_selftests():
     table = st.checks(device="cpu")  # builds nothing, runs nothing
     assert Counter((c.kind, c.kernel, c.shape) for c in table) == Counter(
-        PHASE3 + JAX_ONLY + VIT_L14)
-    assert len({c.name for c in table}) == len(table) == 79
+        PHASE3 + JAX_ONLY + VIT_L14 + SPLIT_ROWS)
+    assert len({c.name for c in table}) == len(table) == 85
     assert all(c.name.startswith(f"kernel {c.kernel} ") for c in table)
     for c in table:  # the bounds phase 3 held each to
         bf16 = "float32" not in c.name

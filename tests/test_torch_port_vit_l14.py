@@ -148,19 +148,47 @@ def test_rpo_train_step_at_an_l14_shape_agrees_with_the_reference():
 
 # -- the rect kernel's route, and the counters --------------------------------
 
+HEADER = os.path.join(REPO, "rpo_tpu_torch/ops/csrc/attention_tc.cuh")
+
+
 def test_the_route_test_is_the_kernels_max_tiles():
     """``two_pass`` at the widest row held in registers and one key past
-    it (256 | 257 keys at head dims 32 and 64, 128 | 129 at 128), and
-    ``max_tiles`` read against ``csrc/attention_tc.cuh``."""
-    header = open(os.path.join(REPO, "rpo_tpu_torch/ops/csrc/attention_tc.cuh")).read()
+    it (256 | 257 keys at head dim 32, 128 | 129 at 128; at 64 the rows
+    past 256 keys take the split-row route up to 624, and two passes from
+    625), and ``max_tiles`` read against ``csrc/attention_tc.cuh``."""
+    header = open(HEADER).read()
     m = re.search(r"constexpr int max_tiles\(int D\) \{ return D == 128 \? (\d+) : (\d+); \}",
                   header)
     assert m and (int(m.group(1)), int(m.group(2))) == (ra.max_tiles(128), ra.max_tiles(64))
     assert ra.max_tiles(32) == ra.max_tiles(64) == 16 and ra.max_tiles(128) == 8
-    for D, widest in ((32, 256), (64, 256), (128, 128)):
+    for D, widest in ((32, 256), (64, 624), (128, 128)):
         assert not ra.two_pass(widest, D) and ra.two_pass(widest + 1, D)
         assert not ra.two_pass(1, D)
-    assert ra.two_pass(577, 64) and not ra.two_pass(197, 64)
+    assert not ra.two_pass(256, 64) and not ra.two_pass(257, 64)
+    assert not ra.two_pass(577, 64) and not ra.two_pass(197, 64) and ra.two_pass(768, 64)
+
+
+def test_the_split_row_test_is_the_kernels():
+    """``split_row``'s constants and condition read against
+    ``csrc/attention_tc.cuh``: head dim 64, past ``max_tiles(64)`` tiles
+    (257 keys) up to three warps of 13 tiles (624 keys), whose block fits
+    the card's shared memory exactly; never at head dims 32 and 128."""
+    header = open(HEADER).read()
+    consts = dict(re.findall(r"constexpr int (kSplit\w+) = (\d+);", header))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kSplitSlice": ra._SPLIT_SLICE, "kSplitWarps": ra._SPLIT_WARPS,
+        "kSplitGroups": ra._SPLIT_GROUPS} == {"kSplitSlice": 13, "kSplitWarps": 3,
+                                              "kSplitGroups": 4}
+    cond = re.search(r"inline bool split_row\(int D, int Lk, int max_smem\) \{\n"
+                     r"  const int nkt = tiles\(Lk\);\n  return (.*?);\n\}", header, re.S)
+    assert cond and " ".join(cond.group(1).split()) == (
+        "D == 64 && nkt > max_tiles(D) && nkt <= kSplitWarps * kSplitSlice && "
+        "split_smem_bytes(D, Lk) <= (size_t)max_smem")
+    on = [Lk for Lk in range(1, 800) if ra.split_row(Lk, 64)]
+    assert on == list(range(257, 625))
+    assert ra.split_row(577, 64) and not ra.split_row(197, 64)
+    assert not any(ra.split_row(Lk, D) for D in (32, 128) for Lk in range(1, 1500))
+    assert ra._split_bytes(624, 64) == ra._MAX_SHARED
 
 
 def test_count_stamps_instant_rows_under_the_innermost_span(monkeypatch):
@@ -187,8 +215,9 @@ def test_count_stamps_instant_rows_under_the_innermost_span(monkeypatch):
 
 
 def test_a_bf16_launch_stamps_its_route(monkeypatch):
-    """The wrapper's launch stamps ``rect_two_pass`` or ``rect_registers``
-    for bf16 and nothing for f32 (the launch itself replaced: no card)."""
+    """The wrapper's launch stamps ``rect_split_row``, ``rect_two_pass`` or
+    ``rect_registers`` for bf16 and nothing for f32 (the launch itself
+    replaced: no card)."""
     class Lib:
         def rect_attention_forward(self, *args):
             return 0
@@ -198,11 +227,12 @@ def test_a_bf16_launch_stamps_its_route(monkeypatch):
     monkeypatch.setattr(ra, "_check", lambda q, k, v: None)
     before = ra.launches
     for Lk, dtype in ((577, torch.bfloat16), (197, torch.bfloat16), (257, torch.float32),
-                      (257, torch.bfloat16)):
+                      (257, torch.bfloat16), (625, torch.bfloat16), (768, torch.bfloat16)):
         kv = torch.zeros(1, 1, Lk, 64, dtype=dtype)
         ra._launch(torch.zeros(1, 1, 4, 64, dtype=dtype), kv, kv)
-    assert ra.launches == before + 4
-    assert [s.name for s in tracing.spans()] == ["rect_two_pass", "rect_registers",
+    assert ra.launches == before + 6
+    assert [s.name for s in tracing.spans()] == ["rect_split_row", "rect_registers",
+                                                 "rect_split_row", "rect_two_pass",
                                                  "rect_two_pass"]
 
 
@@ -250,6 +280,26 @@ def test_rect_two_pass_calls_reads_the_profiled_counter_rows(monkeypatch):
     assert read(SimpleNamespace(kind="eval", trace=None, traced_steps=2)) is None
     monkeypatch.setattr(tracing, "spans", lambda: rows[:50])
     assert read(r) == 0.0  # one pass everywhere
+    monkeypatch.delattr(tracing, "count")  # a program without counters
+    assert read(r) is None
+
+
+def test_rect_split_row_calls_reads_the_profiled_counter_rows(monkeypatch):
+    read = _reader("rect_split_row_calls.eval")
+    rows = ([("rect_split_row", 1, 1, -1, False)] * 50  # the window's, not read
+            + [("rect_split_row", 2, 2, -1, True)] * 48 + [("rect_two_pass", 3, 3, -1, True)] * 4)
+    monkeypatch.setattr(tracing, "spans", lambda: rows)
+    r = SimpleNamespace(kind="eval", trace=object(), traced_steps=2)
+    assert read(r) == 24.0
+    assert read(SimpleNamespace(kind="eval", trace=object(), traced_steps=5)) is None  # 9.6
+    assert read(SimpleNamespace(kind="train", trace=object(), traced_steps=2)) is None
+    assert read(SimpleNamespace(kind="eval", trace=None, traced_steps=2)) is None
+    monkeypatch.setattr(tracing, "spans", lambda: rows[:50] + rows[-4:])
+    assert read(r) == 0.0  # every wide row on two passes
+    monkeypatch.delattr(ra, "split_row")  # a program without the route
+    assert read(r) is None
+    monkeypatch.undo()
+    monkeypatch.setattr(tracing, "spans", lambda: rows)
     monkeypatch.delattr(tracing, "count")  # a program without counters
     assert read(r) is None
 
