@@ -227,14 +227,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-# Bytes/s and dense bf16 FLOP/s by card (NVIDIA data sheets); the first
-# name fragment that matches wins, the H100 SXM (last) is the default.
-PEAKS = [
-    ("H100 PCIe", 2.0e12, 756e12),
-    ("H100 NVL", 3.9e12, 835e12),
-    ("H200", 4.8e12, 989e12),
-    ("H100", 3.35e12, 989e12),
-]
+from benchmark.yardstick import bound, peaks
+
 K = 24
 N_CTX = 16
 BASELINE_TRAIN_BATCH = 32  # configs/trainers/CoOp/vit_b16_ep50_ctxv1.yaml's
@@ -310,12 +304,6 @@ UNIT_ATOL = 1e-2
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     raise SystemExit(1)
-
-
-def bound(n_bytes: float, n_flops: float, bw: float, peak: float):
-    """(bound ms, "bytes" or "operations") for the card's peaks."""
-    bytes_ms, flops_ms = n_bytes / bw * 1e3, n_flops / peak * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
 def profile_eval_step(step, images, smi: str, label: str, what: str = "eval batch",
@@ -427,25 +415,26 @@ def cocoop_checks(label: str, cocoop, clip, batches, logits) -> None:
     from rpo_tpu_torch.ops import fused_text_layer as ftl
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import attention_functions
 
     runs, failed = {"kernels": logits}, []
-    for what, rect_attn, text_layer, min_agree in (
+    for what, rect, text_layer, min_agree in (
         ("both plain", ra.rect_attention_reference, ftl.fused_text_layer_reference, None),
         ("text side plain", ra.rect_attention, ftl.fused_text_layer_reference,
          SINGLE_PAIR_ARGMAX_AGREE),
         ("vision side plain", ra.rect_attention_reference, ftl.fused_text_layer, None),
     ):
-        runs[what] = [cocoop.eval_step(images, rect_attn=rect_attn, text_layer=text_layer)
-                      for images in batches]
+        with attention_functions(rect=rect):
+            runs[what] = [cocoop.eval_step(images, text_layer=text_layer) for images in batches]
         if not check_logits(f"{label} [{what}]", logits, runs[what], min_agree, stop=False):
             failed.append(what)
     clip32 = cast_params(clip, torch.float32)
     normalize32 = device_normalize_fn(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, dtype=torch.float32)
-    with torch.no_grad():
+    with torch.no_grad(), attention_functions(rect=ra.rect_attention_reference,
+                                              masked=ma.masked_attention_reference):
         witness = torch.cat([cocoop_logits(
             cocoop.params, clip32, cocoop.task, normalize32(torch.from_numpy(images).cuda()),
-            chunk=eval_chunk(len(images)), rect_attn=ra.rect_attention_reference,
-            text_layer=ftl.fused_text_layer_reference, masked_attn=ma.masked_attention_reference)
+            chunk=eval_chunk(len(images)), text_layer=ftl.fused_text_layer_reference)
             for images in batches])
     top = witness.argmax(-1)
     top2 = witness.topk(2, dim=-1).values
@@ -538,6 +527,7 @@ def graphed_train(rpo, train_batches, first_prompts, eager_losses, eager_prompts
     from rpo_tpu_torch.methods.step_graph import WARMUP_STEPS, batch_spec
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import current_attention
 
     batches = [{"img": b[0], "label": b[1], "mask": b[2]} for b in train_batches]
     checked = batches[:N_TRAIN_CHECK]
@@ -551,7 +541,7 @@ def graphed_train(rpo, train_batches, first_prompts, eager_losses, eager_prompts
                               for s in rpo.forward_backward_multi(checked[i:i + n])])
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        graph = rpo._graphs[(n, batch_spec(checked[0]))]
+        graph = rpo._graphs[(n, batch_spec(checked[0]), current_attention())]
         per_replay = graph.launches_per_replay["rect_attention.launches"]
         want = 2 * n_layers * (WARMUP_STEPS + n)
         same = bool(torch.equal(losses, eager_losses)) and all(
@@ -759,6 +749,7 @@ def eval_only_check(out: str, label: str, trainer, argv, accuracy, n_layers: int
     from rpo_tpu_torch.methods import rpo as rpo_core
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import attention_functions
 
     ra.launches = ma.launches = 0
     i = argv.index("--output-dir")
@@ -781,11 +772,13 @@ def eval_only_check(out: str, label: str, trainer, argv, accuracy, n_layers: int
     images = [b for b in evaluator.dm.test_loader][-1]["img"]
     logits = evaluator.eval_step(images)
     kernel_frozen = evaluator._frozen
-    evaluator._frozen = rpo_core.make_frozen(evaluator.clip_params, evaluator.task,
-                                             masked_attn=ma.masked_attention_reference)
+    with attention_functions(masked=ma.masked_attention_reference):
+        evaluator._frozen = rpo_core.make_frozen(evaluator.clip_params, evaluator.task)
     evaluator._text_f_cache = None
-    plain = evaluator.eval_step(images, rect_attn=ra.rect_attention_reference,
-                                masked_attn=ma.masked_attention_reference)
+    evaluator.text_features()  # the cache filled on the kernels, as the eval step's always is
+    with attention_functions(rect=ra.rect_attention_reference,
+                             masked=ma.masked_attention_reference):
+        plain = evaluator.eval_step(images)
     evaluator._frozen, evaluator._text_f_cache = kernel_frozen, None
     diff = (logits.float() - plain.float()).abs().max().item()
     agree = (logits.argmax(-1) == plain.argmax(-1)).float().mean().item()
@@ -812,6 +805,7 @@ def rpo_run(out: str, smi: str, phase10_rate: float, n_layers: int, text_layers:
     from rpo_tpu_torch.methods import rpo as rpo_core
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import attention_functions
 
     argv = run_argv(os.path.join(out, "train"))
     trainer, log, step_losses, engine_rate, accuracy, made, replayed, _ = cli_train(
@@ -847,12 +841,12 @@ def rpo_run(out: str, smi: str, phase10_rate: float, n_layers: int, text_layers:
     plain = build_trainer(evaluator.cfg.clone(), clip_params=evaluator.clip_params,
                           device=evaluator.device)
     del evaluator
-    plain._frozen = rpo_core.make_frozen(plain.clip_params, plain.task,
-                                         masked_attn=ma.masked_attention_reference)
     lr = lr_at_epoch(plain.cfg.OPTIM, 0)
-    refs = dict(rect_attn=ra.rect_attention_reference, masked_attn=ma.masked_attention_reference)
-    p_losses = torch.stack([plain.train_step(b["img"], b["label"], b["mask"], lr, **refs)[0]
-                            for b in plain.dm.train_loader_x]).float().cpu()
+    with attention_functions(rect=ra.rect_attention_reference,
+                             masked=ma.masked_attention_reference):
+        plain._frozen = rpo_core.make_frozen(plain.clip_params, plain.task)
+        p_losses = torch.stack([plain.train_step(b["img"], b["label"], b["mask"], lr)[0]
+                                for b in plain.dm.train_loader_x]).float().cpu()
     err = (step_losses[:n_steps] - p_losses).abs().max().item()
     ok = len(p_losses) == n_steps and err <= TRAIN_LOSS_ATOL
     print(f"RPO run epoch 1 ({n_steps} steps at LR {lr:g}) vs the same epoch on both plain "
@@ -1163,14 +1157,15 @@ def lp_witness_logits(evaluator, images):
     from rpo_tpu_torch.models.clip.model import cast_params
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import attention_functions
 
     clip32, cfg = cast_params(evaluator.clip_params, torch.float32), evaluator.clip_cfg
     normalize32 = device_normalize_fn(CLIP_PIXEL_MEAN, CLIP_PIXEL_STD, dtype=torch.float32)
     x = normalize32(torch.as_tensor(images).to(evaluator.device))
-    with torch.no_grad():
-        tf = lp_text_features(clip32, cfg, evaluator.classnames, evaluator.prompt,
-                              ma.masked_attention_reference)
-        return lp_logits(evaluator.params, clip32, cfg, tf, x, ra.rect_attention_reference)
+    with torch.no_grad(), attention_functions(rect=ra.rect_attention_reference,
+                                              masked=ma.masked_attention_reference):
+        tf = lp_text_features(clip32, cfg, evaluator.classnames, evaluator.prompt)
+        return lp_logits(evaluator.params, clip32, cfg, tf, x)
 
 
 def plain_eval_logits(evaluator, images, rect=None):
@@ -1182,21 +1177,20 @@ def plain_eval_logits(evaluator, images, rect=None):
     from rpo_tpu_torch.methods import linear_probe, zsclip
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import attention_functions
 
-    rect, masked = rect or ra.rect_attention_reference, ma.masked_attention_reference
     clip, cfg = evaluator.clip_params, evaluator.clip_cfg
     x = evaluator._normalize(torch.as_tensor(images).to(evaluator.device))
-    with torch.no_grad():
+    with torch.no_grad(), attention_functions(rect=rect or ra.rect_attention_reference,
+                                              masked=ma.masked_attention_reference):
         if isinstance(evaluator, coop_mod.CoOp):
-            tf = coop_mod.coop_text_features(evaluator.params, clip, evaluator.task, masked)
-            return coop_mod.coop_logits(evaluator.params, clip, evaluator.task, x, text_f=tf,
-                                        rect_attn=rect, masked_attn=masked)
+            tf = coop_mod.coop_text_features(evaluator.params, clip, evaluator.task)
+            return coop_mod.coop_logits(evaluator.params, clip, evaluator.task, x, text_f=tf)
         if isinstance(evaluator, linear_probe.LP):
-            tf = linear_probe.lp_text_features(clip, cfg, evaluator.classnames, evaluator.prompt,
-                                               masked)
-            return linear_probe.lp_logits(evaluator.params, clip, cfg, tf, x, rect)
-        tf = zsclip.zeroshot_text_features(clip, cfg, evaluator.text_tokens(), masked)
-        return zsclip.zeroshot_logits(clip, cfg, x, tf, rect, masked)
+            tf = linear_probe.lp_text_features(clip, cfg, evaluator.classnames, evaluator.prompt)
+            return linear_probe.lp_logits(evaluator.params, clip, cfg, tf, x)
+        tf = zsclip.zeroshot_text_features(clip, cfg, evaluator.text_tokens())
+        return zsclip.zeroshot_logits(clip, cfg, x, tf)
 
 
 def check_run_logits(label: str, evaluator, images, logits) -> None:
@@ -1286,6 +1280,7 @@ def baseline_plain_epoch(label: str, evaluator, step_losses) -> None:
     from rpo_tpu_torch.methods.step_graph import state_kept
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import attention_functions
 
     set_random_seed(1)
     plain = build_trainer(evaluator.cfg.clone(), clip_params=evaluator.clip_params,
@@ -1307,15 +1302,15 @@ def baseline_plain_epoch(label: str, evaluator, step_losses) -> None:
         if failed or loss_err > TRAIN_LOSS_ATOL or logits_err > SLICE_ATOL:
             fail(f"{label}: the accumulated step disagrees with the monolithic one")
     if isinstance(plain, LP):
-        plain._frozen["text_f"] = lp_text_features(
-            plain.clip_params, plain.clip_cfg, plain.classnames, plain.prompt,
-            ma.masked_attention_reference)
+        with attention_functions(masked=ma.masked_attention_reference):
+            plain._frozen["text_f"] = lp_text_features(
+                plain.clip_params, plain.clip_cfg, plain.classnames, plain.prompt)
     lr = lr_at_epoch(plain.cfg.OPTIM, 0)
 
     def losses(steps, rect):
-        return torch.stack([plain.train_step(
-            plain._train_images(b), b["label"], b["mask"], lr, rect_attn=rect,
-            masked_attn=ma.masked_attention_reference)[0] for b in steps]).float().cpu()
+        with attention_functions(rect=rect, masked=ma.masked_attention_reference):
+            return torch.stack([plain.train_step(plain._train_images(b), b["label"], b["mask"],
+                                                 lr)[0] for b in steps]).float().cpu()
 
     for i, (lost, fault) in enumerate(PLANTED_FAULTS if isinstance(plain, LP) else ()):
         with state_kept([t for t in plain._graph_bound() if isinstance(t, torch.Tensor)]):
@@ -2047,6 +2042,7 @@ def _multi_rank_child(rank: int, spec_path: str, out_dir: str) -> None:
     from rpo_tpu_torch.models.clip.model import ARCHS, cast_params, init_clip
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
+    from rpo_tpu_torch.ops.attention import attention_functions
     from rpo_tpu_torch.parallel import dp
 
     spec = torch.load(spec_path, weights_only=False)
@@ -2069,15 +2065,17 @@ def _multi_rank_child(rank: int, spec_path: str, out_dir: str) -> None:
         ra.launches = ma.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = [rpo.eval_step(images[a:b], rect_attn=recording) for images in spec["images"]]
+        with attention_functions(rect=recording):
+            logits = [rpo.eval_step(images[a:b]) for images in spec["images"]]
         torch.cuda.synchronize()
         eval_s = time.perf_counter() - t0
         eval_launches = (ra.launches, ma.launches)
         rpo.set_ckpt_state(rpo.model_name, spec["first_prompts"])
         ra.launches = ma.launches = 0
         eval_shapes, shapes = sorted(set(shapes)), []
-        loss, _ = dp.shard_train_step(rpo.train_step, rpo.mesh)(*spec["train_batch"], TRAIN_LR,
-                                                                rect_attn=recording)
+        with attention_functions(rect=recording):
+            loss, _ = dp.shard_train_step(rpo.train_step, rpo.mesh)(*spec["train_batch"],
+                                                                    TRAIN_LR)
         torch.cuda.synchronize()
         out[tp] = {"mesh": dict(rpo.mesh.shape), "backend": rpo.mesh.backend,
                    "setup_masked": setup_masked,
@@ -2312,7 +2310,7 @@ def main() -> int:
     from rpo_tpu_torch.ops import _build
     from rpo_tpu_torch.ops import fused_rect_layer as frl
     from rpo_tpu_torch.ops import fused_text_layer as ftl
-    from rpo_tpu_torch.ops.attention import multihead_attention_rect
+    from rpo_tpu_torch.ops.attention import attention_functions, multihead_attention_rect
     from rpo_tpu_torch.ops import masked_attention as ma
     from rpo_tpu_torch.ops import rect_attention as ra
     from rpo_tpu_torch.ops.selftest import (FUSED_TEXT_CHECKS, RECT_HALF_CHECKS, TRAIN_SHAPES,
@@ -2335,7 +2333,7 @@ def main() -> int:
              torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
     if any(flags):
         fail(f"resolve_device left a reduced-precision flag on: {flags}")
-    bw, peak = next(((b, p) for frag, b, p in PEAKS if frag in name), PEAKS[-1][1:])
+    bw, peak = peaks(name)
     print(f"device: {name} | nvidia-smi: {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32} | allow_bf16_reduced_precision_reduction="
@@ -2536,7 +2534,7 @@ def main() -> int:
                     lambda: frl.fused_rect_attn_half_reference(x, blk["ln_1"], blk["attn"],
                                                                heads, n_kv),
                     lambda: x + multihead_attention_rect(layer_norm(x, blk["ln_1"]), blk["attn"],
-                                                         heads, n_kv, ra.rect_attention),
+                                                         heads, n_kv),
                     n_x + attn_w, attn_flops),
                 "fused_mlp_half": (
                     lambda: frl.fused_mlp_half(x, blk["ln_2"], blk["mlp"], kernel=blk["kernel"]),
@@ -2599,12 +2597,13 @@ def main() -> int:
           f"{ra.launches} = {n_layers} x {N_BATCHES}", flush=True)
     # fully plain: the text K/V cache built with the plain masked attention,
     # the vision tower on the plain rect attention
-    plain_frozen = rpo_core.make_frozen(clip, rpo.task, masked_attn=ma.masked_attention_reference)
-    with torch.no_grad():
+    with torch.no_grad(), attention_functions(rect=ra.rect_attention_reference,
+                                              masked=ma.masked_attention_reference):
+        plain_frozen = rpo_core.make_frozen(clip, rpo.task)
         plain_tf = rpo_core.encode_text_with_prompts(rpo.params, plain_frozen, rpo.task)
         plain = [rpo_core.rpo_logits(
             rpo.params, plain_frozen, rpo.task, rpo._normalize(torch.from_numpy(images).cuda()),
-            text_f=plain_tf, rect_attn=ra.rect_attention_reference) for images in batches]
+            text_f=plain_tf) for images in batches]
     check_logits(f"slice RPO ViT-B/16 bf16 K={K} n_cls={N_CLS}", logits, plain,
                  against="both plain versions (text K/V cache and vision tower)")
     report_rate("RPO", setup_s, batch_s, smi)
@@ -2627,13 +2626,12 @@ def main() -> int:
     check_launches("CoOp eval", ma, text_layers)
     print(f"CoOp launches: masked {ma.launches} = {text_layers} (text features at L = "
           f"{coop.task.text_len}), rect {ra.launches} = {n_layers} x {N_BATCHES}", flush=True)
-    with torch.no_grad():
-        plain_tf = coop_mod.coop_text_features(coop.params, clip, coop.task,
-                                               masked_attn=ma.masked_attention_reference)
+    with torch.no_grad(), attention_functions(rect=ra.rect_attention_reference,
+                                              masked=ma.masked_attention_reference):
+        plain_tf = coop_mod.coop_text_features(coop.params, clip, coop.task)
         plain = [coop_mod.coop_logits(
             coop.params, clip, coop.task, coop._normalize(torch.from_numpy(images).cuda()),
-            text_f=plain_tf, rect_attn=ra.rect_attention_reference,
-            masked_attn=ma.masked_attention_reference) for images in batches]
+            text_f=plain_tf) for images in batches]
     check_logits(f"slice CoOp ViT-B/16 bf16 N_CTX={N_CTX} end n_cls={N_CLS}", logits, plain,
                  SINGLE_PAIR_ARGMAX_AGREE)
     report_rate("CoOp", setup_s, batch_s, smi)
@@ -2657,12 +2655,12 @@ def main() -> int:
     tokens = zs.text_tokens()
     print(f"ZeroshotCLIP launches: masked {ma.launches} = {text_layers} (1 template at L = "
           f"{tokens.shape[-1]}), rect {ra.launches} = {n_layers} x {N_BATCHES}", flush=True)
-    with torch.no_grad():
-        plain_tf = zsclip.zeroshot_text_features(clip, zs.clip_cfg, tokens,
-                                                 ma.masked_attention_reference)
+    with torch.no_grad(), attention_functions(rect=ra.rect_attention_reference,
+                                              masked=ma.masked_attention_reference):
+        plain_tf = zsclip.zeroshot_text_features(clip, zs.clip_cfg, tokens)
         plain = [zsclip.zeroshot_logits(
-            clip, zs.clip_cfg, zs._normalize(torch.from_numpy(images).cuda()), plain_tf,
-            ra.rect_attention_reference, ma.masked_attention_reference) for images in batches]
+            clip, zs.clip_cfg, zs._normalize(torch.from_numpy(images).cuda()), plain_tf)
+            for images in batches]
     check_logits(f"slice ZeroshotCLIP ViT-B/16 bf16 Caltech101 n_cls={N_CLS}", logits, plain,
                  SINGLE_PAIR_ARGMAX_AGREE)
     report_rate("ZeroshotCLIP", setup_s, batch_s, smi)
@@ -2679,9 +2677,8 @@ def main() -> int:
     masked_launches["ZeroshotCLIP2 text features"] = check_launches(
         "ZeroshotCLIP2 text", ma, text_layers * n_templates)
     check_launches("ZeroshotCLIP2 text", ra, 0)
-    with torch.no_grad():
-        plain_tf = zsclip.zeroshot_text_features(clip, zs2.clip_cfg, zs2.text_tokens(),
-                                                 ma.masked_attention_reference)
+    with torch.no_grad(), attention_functions(masked=ma.masked_attention_reference):
+        plain_tf = zsclip.zeroshot_text_features(clip, zs2.clip_cfg, zs2.text_tokens())
     err = (feats - plain_tf).abs().max().item()
     min_cos = (feats * plain_tf).sum(-1).min().item()
     ok = tuple(feats.shape) == (N_CLS, 512) and bool(torch.isfinite(feats).all()) and err <= UNIT_ATOL
@@ -2829,13 +2826,14 @@ def main() -> int:
     # the first step and ten steps against the same steps fully on the plain
     # versions: a K/V cache built with the plain masked attention, the plain
     # rect attention in the split tower
-    refs = dict(rect_attn=ra.rect_attention_reference, masked_attn=ma.masked_attention_reference)
+    refs = dict(rect=ra.rect_attention_reference, masked=ma.masked_attention_reference)
     rpo.set_ckpt_state(rpo.model_name, first_prompts)  # the first prompts, a fresh optimizer
     plain = RPO(classnames, "a photo of a _.", K=K, backbone="ViT-B/16", prec="fp16", seed=1,
                 clip_params=clip)
-    plain._frozen = rpo_core.make_frozen(clip, plain.task, masked_attn=ma.masked_attention_reference)
     loss, logits, grads = rpo.loss_and_grads(*train_batches[0])
-    p_loss, p_logits, p_grads = plain.loss_and_grads(*train_batches[0], **refs)
+    with attention_functions(**refs):
+        plain._frozen = rpo_core.make_frozen(clip, plain.task)
+        p_loss, p_logits, p_grads = plain.loss_and_grads(*train_batches[0])
     if tuple(logits.shape) != (TRAIN_BATCH, N_CLS) or not bool(torch.isfinite(logits).all()):
         fail(f"RPO train logits have shape {tuple(logits.shape)} or are not finite")
     loss_err = abs(loss.item() - p_loss.item())
@@ -2860,8 +2858,9 @@ def main() -> int:
           f"(tol {SLICE_ATOL}); " + "; ".join(parts), flush=True)
     if failed:
         fail(f"RPO train first step disagrees with the plain run: {', '.join(failed)}")
-    p_losses = [plain.train_step(*batch, TRAIN_LR, **refs)[0]
-                for batch in train_batches[:N_TRAIN_CHECK]]
+    with attention_functions(**refs):
+        p_losses = [plain.train_step(*batch, TRAIN_LR)[0]
+                    for batch in train_batches[:N_TRAIN_CHECK]]
     losses, p_losses = torch.stack(losses), torch.stack(p_losses)
     steps_err = (losses - p_losses).abs().max().item()
     ok = steps_err <= TRAIN_LOSS_ATOL and bool(torch.isfinite(losses).all())

@@ -9,7 +9,7 @@ top-1 accuracy) with its optimizer state.  A subclass's
 ``self._frozen`` and calls ``_install_steps`` with
 
   text_features(params, frozen) -> per-task tensors for eval (or None)
-  eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn) -> logits
+  eval_step(params, frozen, text_f, images_u8) -> logits
 
 and, for a method that trains, the ``loss_and_grads`` function that
 ``_make_train_step`` builds (or ``_make_grad_accum_train_step``, exact
@@ -22,10 +22,10 @@ JAX's ``jax.jit`` and ``make_multi``); ``before_train`` captures the
 graphs the epoch loop will replay when TRAIN.PREWARM_COMPILE is set,
 else each is captured at its first use.  On the CPU, which a caller
 asks for, the hooks run the same steps one by one.  ``train_step`` and
-``loss_and_grads`` run one step eagerly, with the kernels replaceable by
-their plain versions.  Images go through ``make_image_prep``: with
-INPUT.DEVICE_RESIZE a train batch is the {img, box, flip} of raw sources
-and the crops, resized on the device (``ops/preprocess.py``).
+``loss_and_grads`` run one step eagerly.  Images go through
+``make_image_prep``: with INPUT.DEVICE_RESIZE a train batch is the {img,
+box, flip} of raw sources and the crops, resized on the device
+(``ops/preprocess.py``).
 
 Under a process group (one rank a card, ``torchrun``) the trainer takes
 its place in a mesh (``parallel/dp.py``, ``parallel/tp.py``): the data
@@ -62,10 +62,8 @@ from ..engine.trainer import TrainerBase, _load_checkpoint_file
 from ..models.clip.model import ARCHS, CLIPConfig, cast_params
 from ..models.clip.pretrained import load_backbone
 from ..models.clip.resnet import conv_layout
-from ..ops.attention import Attention, MaskedAttention
-from ..ops.masked_attention import masked_attention
+from ..ops.attention import current_attention
 from ..ops.preprocess import _mean_std_u8, device_eval_preprocess, device_train_preprocess
-from ..ops.rect_attention import rect_attention
 from ..parallel import dp, tp
 from .step_graph import StepGraph, batch_spec, train_batch_spec
 
@@ -237,7 +235,7 @@ class CLIPMethodTrainer(TrainerBase):
         self.params = None
         self._loss_and_grads = None
         self._optimizer = None
-        self._graphs = {}  # (steps, batch_spec) -> StepGraph
+        self._graphs = {}  # (steps, batch_spec, attention functions) -> StepGraph
         with self._tp_scope():
             self.build_method()
         self._reset_optimizer()
@@ -389,16 +387,15 @@ class CLIPMethodTrainer(TrainerBase):
     def _make_train_step(self, logits_fn, precompute=None, microbatch: Optional[int] = None,
                          mesh: Optional[dp.Mesh] = None):
         """The standard step's loss and gradients over
-        ``logits_fn(params, frozen, images_u8, ctx, rect_attn, masked_attn)
-        -> (B, n_cls)``: masked cross-entropy in which padded rows weigh 0,
-        gradients of the trainable tensors only.  Returns
-        ``loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn,
-        masked_attn) -> (loss, logits, grads)``; ``train_step`` adds the
-        SGD update and the masked accuracy.
+        ``logits_fn(params, frozen, images_u8, ctx) -> (B, n_cls)``: masked
+        cross-entropy in which padded rows weigh 0, gradients of the
+        trainable tensors only.  Returns ``loss_and_grads(params, frozen,
+        images_u8, labels, mask) -> (loss, logits, grads)``; ``train_step``
+        adds the SGD update and the masked accuracy.
 
         ``ctx`` is per-step work shared across chunks (RPO's text tower,
         on the live prompts, under grad), made once by
-        ``precompute(params, frozen, masked_attn)``, None without one.
+        ``precompute(params, frozen)``, None without one.
         ``microbatch`` (``self._microbatch``, TRAIN.MICROBATCH, when None)
         computes the forward in chunks of that many images inside the one
         loss and gradient; it engages only for batches it divides evenly
@@ -413,21 +410,19 @@ class CLIPMethodTrainer(TrainerBase):
         the global accuracy as a fourth value."""
         mb = self._microbatch if microbatch is None else int(microbatch)
 
-        def batch_logits(p, frozen, images_u8, rect_attn, masked_attn):
-            ctx = None if precompute is None else precompute(p, frozen, masked_attn)
+        def batch_logits(p, frozen, images_u8):
+            ctx = None if precompute is None else precompute(p, frozen)
             B = (images_u8["img"] if isinstance(images_u8, dict) else images_u8).shape[0]
             if not 0 < mb < B or B % mb:
-                return logits_fn(p, frozen, images_u8, ctx, rect_attn, masked_attn)
-            return torch.cat([
-                logits_fn(p, frozen, dp.rows_of(images_u8, i * mb, (i + 1) * mb), ctx, rect_attn,
-                          masked_attn)
-                for i in range(B // mb)])
+                return logits_fn(p, frozen, images_u8, ctx)
+            return torch.cat([logits_fn(p, frozen, dp.rows_of(images_u8, i * mb, (i + 1) * mb), ctx)
+                              for i in range(B // mb)])
 
-        def loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn, masked_attn):
+        def loss_and_grads(params, frozen, images_u8, labels, mask):
             # the trainable tensors as autograd leaves sharing their storage
             leaves = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
             with torch.enable_grad():
-                logits = batch_logits(leaves, frozen, images_u8, rect_attn, masked_attn)
+                logits = batch_logits(leaves, frozen, images_u8)
                 logp = torch.log_softmax(logits, dim=-1)
                 nll = -logp.gather(-1, labels[:, None])[:, 0]
                 if mesh is None:
@@ -449,13 +444,13 @@ class CLIPMethodTrainer(TrainerBase):
         ``loss_and_grads`` signature of ``_make_train_step``'s (the JAX
         package's ``_make_grad_accum_train_step``).
 
-        ``precompute(frozen, images_u8, rect_attn) -> (B, ...)`` is the
+        ``precompute(frozen, images_u8) -> (B, ...)`` is the
         shared per-batch work, run once without grad.  It takes no params:
         a param-dependent precompute would drop its gradients across
         chunks and make the accumulation inexact.  The chunk is
         ``chunk_size`` rows, decremented until it divides B (a batch below
         it is one chunk).  Each chunk's ``chunk_logits_fn(params, frozen,
-        ctx_chunk, masked_attn) -> (c, n_cls)`` runs forward and backward
+        ctx_chunk) -> (c, n_cls)`` runs forward and backward
         at once, so that one chunk's activations are alive at a time, and
         adds the gradient of sum(nll * mask).  Divided by sum(mask), the
         sums are the loss and the gradients; the logits are the chunks'
@@ -466,9 +461,9 @@ class CLIPMethodTrainer(TrainerBase):
         ranks (``dp.reduce_step``), as ``_make_train_step``'s; the global
         accuracy comes back as a fourth value."""
 
-        def loss_and_grads(params, frozen, images_u8, labels, mask, rect_attn, masked_attn):
+        def loss_and_grads(params, frozen, images_u8, labels, mask):
             with torch.no_grad():
-                batch_ctx = precompute(frozen, images_u8, rect_attn)
+                batch_ctx = precompute(frozen, images_u8)
             B = batch_ctx.shape[0]
             c = max(1, min(int(chunk_size), B))
             while B % c:
@@ -478,7 +473,7 @@ class CLIPMethodTrainer(TrainerBase):
             grads, nll_sum, logits = None, 0.0, []
             for i in range(0, B, c):
                 with torch.enable_grad():
-                    chunk_logits = chunk_logits_fn(leaves, frozen, batch_ctx[i:i + c], masked_attn)
+                    chunk_logits = chunk_logits_fn(leaves, frozen, batch_ctx[i:i + c])
                     logp = torch.log_softmax(chunk_logits, dim=-1)
                     nll = -logp.gather(-1, labels[i:i + c, None])[:, 0]
                     chunk_sum = torch.sum(nll * mask[i:i + c])
@@ -513,34 +508,24 @@ class CLIPMethodTrainer(TrainerBase):
         return (images, torch.as_tensor(labels).to(dev, torch.int64),
                 torch.as_tensor(mask).to(dev, torch.float32))
 
-    def loss_and_grads(
-        self,
-        images_u8,
-        labels,
-        mask,
-        rect_attn: Attention = rect_attention,
-        masked_attn: MaskedAttention = masked_attention,
-    ):
+    def loss_and_grads(self, images_u8, labels, mask):
         """(loss, logits, grads) of the train step at the current
-        trainable state, without the update.  ``rect_attn`` and
-        ``masked_attn`` replace the attention kernels (for a comparison
-        with their plain versions).  Under a mesh the batch is this rank's
-        rows, the loss and gradients the global batch's, the logits this
-        rank's."""
-        return self._grads_on(self._batch(images_u8, labels, mask), rect_attn, masked_attn)[:3]
+        trainable state, without the update.  Under a mesh the batch is
+        this rank's rows, the loss and gradients the global batch's, the
+        logits this rank's."""
+        return self._grads_on(self._batch(images_u8, labels, mask))[:3]
 
-    def _grads_on(self, batch, rect_attn, masked_attn):
+    def _grads_on(self, batch):
         if self._loss_and_grads is None:
             raise self._no_train_step()
-        return self._loss_and_grads(self.params, self._frozen, *batch, rect_attn, masked_attn)
+        return self._loss_and_grads(self.params, self._frozen, *batch)
 
-    def _step_on(self, images, labels, mask, rect_attn: Attention = rect_attention,
-                 masked_attn: MaskedAttention = masked_attention):
+    def _step_on(self, images, labels, mask):
         """One SGD step on a batch on the device, at the optimizer's
         learning-rate tensor: (masked loss, masked top-1 accuracy) as
         device scalars.  Tensor operations only, no host sync: the step a
         ``StepGraph`` captures, and ``train_step``'s."""
-        out = self._grads_on((images, labels, mask), rect_attn, masked_attn)
+        out = self._grads_on((images, labels, mask))
         loss, logits, grads = out[:3]
         self._optimizer.update(self.params, grads)
         self._text_f_cache = None
@@ -549,15 +534,7 @@ class CLIPMethodTrainer(TrainerBase):
         acc = torch.sum((logits.argmax(-1) == labels) * mask) / torch.sum(mask)
         return loss, acc
 
-    def train_step(
-        self,
-        images_u8,
-        labels,
-        mask,
-        lr: float,
-        rect_attn: Attention = rect_attention,
-        masked_attn: MaskedAttention = masked_attention,
-    ):
+    def train_step(self, images_u8, labels, mask, lr: float):
         """One SGD step at ``lr`` on a (B, H, W, 3) uint8 batch (or the
         device-resize {img, box, flip}), run eagerly; returns the masked
         loss and the masked top-1 accuracy as device scalars (no host
@@ -567,7 +544,7 @@ class CLIPMethodTrainer(TrainerBase):
             raise self._no_train_step()
         batch = self._batch(images_u8, labels, mask)
         self._optimizer.set_lr(lr)
-        return self._step_on(*batch, rect_attn, masked_attn)
+        return self._step_on(*batch)
 
     @staticmethod
     def _train_images(batch):
@@ -585,11 +562,13 @@ class CLIPMethodTrainer(TrainerBase):
 
     def _graph(self, n_steps: int, spec) -> StepGraph:
         """The captured graph of ``n_steps`` steps over batches of
-        ``spec``, captured at its first use."""
-        graph = self._graphs.get((n_steps, spec))
+        ``spec``, captured at its first use on the attention functions in
+        force, which its key holds."""
+        key = (n_steps, spec, current_attention())
+        graph = self._graphs.get(key)
         if graph is None:
             graph = StepGraph(self._step_on, n_steps, spec, self._graph_bound, self.device)
-            self._graphs[(n_steps, spec)] = graph
+            self._graphs[key] = graph
         return graph
 
     def _graph_bound(self) -> list:
@@ -675,22 +654,14 @@ class CLIPMethodTrainer(TrainerBase):
         return self._text_f_cache
 
     @torch.no_grad()
-    def eval_step(
-        self,
-        images_u8,
-        rect_attn: Attention = rect_attention,
-        masked_attn: MaskedAttention = masked_attention,
-    ) -> torch.Tensor:
+    def eval_step(self, images_u8) -> torch.Tensor:
         """(B, n_cls) logits for a uint8 (B, H, W, 3) batch, on the device.
-        ``rect_attn`` and ``masked_attn`` replace the attention kernels
-        (for a comparison with their plain versions); the cached text
-        features are computed with the kernels.  Under a mesh the batch is
-        this rank's rows and the logits the global batch's (every data
-        rank's rows, gathered)."""
+        The text features come from the cache, on the attention functions
+        in force when it was filled.  Under a mesh the batch is this
+        rank's rows and the logits the global batch's (every data rank's
+        rows, gathered)."""
         images = torch.as_tensor(images_u8).to(self.device)
-        return self._eval_step(
-            self.params, self._frozen, self.text_features(), images, rect_attn, masked_attn
-        )
+        return self._eval_step(self.params, self._frozen, self.text_features(), images)
 
     def model_inference_async(self, images) -> torch.Tensor:
         """The logits left on the device; ``test()`` converts them."""

@@ -27,10 +27,7 @@ import torch
 from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.layers import TextLayer
 from ..models.clip.model import encode_image
-from ..ops.attention import Attention, MaskedAttention
 from ..ops.fused_text_layer import fused_text_layer, with_text_kernel_layout
-from ..ops.masked_attention import masked_attention
-from ..ops.rect_attention import rect_attention
 from ..parallel import dp
 from .base_trainer import CLIPMethodTrainer
 from .coop import CoOpTask, init_ctx, make_task, text_encoder
@@ -91,21 +88,19 @@ def cocoop_logits(
     images: Optional[torch.Tensor],
     chunk: int = 0,
     image_features: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
     text_layer: TextLayer = fused_text_layer,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """(B, n_cls) logits with image-conditioned contexts: the JAX package's
     flattened eval branch (``rpo_tpu/methods/cocoop.py:117-133``).  Per
     chunk of ``chunk`` images (the whole batch if ``chunk`` <= 0 or >= B),
     the chunk's prompts go through the text tower as one (chunk * n_cls, L,
     d) batch whose blocks run ``text_layer`` (bf16; in float32 the blocks
-    run one by one on ``masked_attn``, see ``layers.transformer``); the
+    run one by one on the masked attention, see ``layers.transformer``); the
     text features and the image features are L2-normalised in float32, and
     the logits are exp(logit_scale) times their per-image dot products."""
     cfg = task.cfg
     if image_features is None:
-        image_features = encode_image(clip_params, cfg, images, rect_attn).float()
+        image_features = encode_image(clip_params, cfg, images).float()
     imf = image_features / torch.linalg.vector_norm(image_features, dim=-1, keepdim=True)
     bias = meta_net_apply(params["meta_net"], imf)  # (B, ctx_dim)
     ctx_shifted = params["ctx"].float()[None] + bias[:, None, :]  # (B, n_ctx, ctx_dim)
@@ -121,7 +116,7 @@ def cocoop_logits(
         c = ctx_cc.shape[0]
         flat = assemble(ctx_cc).reshape(c * n_cls, L, -1)
         toks = tokens[None].expand(c, n_cls, L).reshape(c * n_cls, L)
-        tf = text_encoder(clip_params, cfg, flat, toks, masked_attn, text_layer).float()
+        tf = text_encoder(clip_params, cfg, flat, toks, text_layer).float()
         tf = tf / torch.linalg.vector_norm(tf, dim=-1, keepdim=True)
         return scale * torch.einsum("cnd,cd->cn", tf.view(c, n_cls, -1), imf_cc)
 
@@ -192,21 +187,21 @@ class CoCoOp(CLIPMethodTrainer):
                 **text, "blocks": with_text_kernel_layout(text["blocks"])}}}
         normalize = self._normalize
 
-        # training: the text towers block by block on masked_attn (the
-        # fused layer is forward-only); small batches in one step
-        def logits_fn(params, frozen, images_u8, _ctx, rect_attn, masked_attn):
+        # training: the text towers block by block on the masked attention
+        # (the fused layer is forward-only); small batches in one step
+        def logits_fn(params, frozen, images_u8, _ctx):
             return cocoop_logits(params, frozen["clip"], task, normalize(images_u8),
-                                 rect_attn=rect_attn, text_layer=None, masked_attn=masked_attn)
+                                 text_layer=None)
 
         # large batches: the frozen image tower once over the batch, in
         # float32, then the chunks' text towers with their gradients one
         # chunk at a time
-        def precompute(frozen, images_u8, rect_attn):
-            return encode_image(frozen["clip"], task.cfg, normalize(images_u8), rect_attn).float()
+        def precompute(frozen, images_u8):
+            return encode_image(frozen["clip"], task.cfg, normalize(images_u8)).float()
 
-        def chunk_logits(params, frozen, imf, masked_attn):
+        def chunk_logits(params, frozen, imf):
             return cocoop_logits(params, frozen["clip"], task, None, image_features=imf,
-                                 text_layer=None, masked_attn=masked_attn)
+                                 text_layer=None)
 
         # under a mesh each rank accumulates over its own rows' chunks, then
         # one all-reduce: legal where JAX's scan over a sharded batch is not
@@ -227,40 +222,26 @@ class CoCoOp(CLIPMethodTrainer):
         # no text features; eval_step below
         self._install_steps(None, None, loss_and_grads)
 
-    def loss_and_grads_of(
-        self,
-        kind: str,
-        images_u8,
-        labels,
-        mask,
-        rect_attn: Attention = rect_attention,
-        masked_attn: MaskedAttention = masked_attention,
-    ):
+    def loss_and_grads_of(self, kind: str, images_u8, labels, mask):
         """``loss_and_grads`` by the step of ``kind``, "monolithic" or
         "accumulated", whatever the batch: for a comparison of the two."""
         with self._tp_scope():
             return self._train_steps[kind](self.params, self._frozen,
-                                           *self._batch(images_u8, labels, mask), rect_attn,
-                                           masked_attn)[:3]
+                                           *self._batch(images_u8, labels, mask))[:3]
 
     @torch.no_grad()
-    def eval_step(
-        self,
-        images_u8,
-        rect_attn: Attention = rect_attention,
-        text_layer: TextLayer = fused_text_layer,
-    ) -> torch.Tensor:
+    def eval_step(self, images_u8, text_layer: TextLayer = fused_text_layer) -> torch.Tensor:
         """(B, n_cls) logits for a uint8 (B, H, W, 3) batch: the image
         tower once over the batch, then ``cocoop_logits`` in chunks of
-        ``eval_chunk(B)`` images.  ``rect_attn`` and ``text_layer`` replace
-        the kernels (for a comparison with their plain versions).  Under a
+        ``eval_chunk(B)`` images.  ``text_layer`` replaces the kernel (for
+        a comparison with its plain version).  Under a
         mesh the batch is this rank's rows and the logits are gathered to
         the global batch; under tensor parallelism the text towers run
         unfused."""
         images = self._normalize(torch.as_tensor(images_u8).to(self.device))
         clip = self._frozen["clip"]
         with self._tp_scope():
-            imf = encode_image(clip, self.clip_cfg, images, rect_attn).float()
+            imf = encode_image(clip, self.clip_cfg, images).float()
             logits = cocoop_logits(self.params, clip, self.task, None,
                                    chunk=eval_chunk(imf.shape[0]), image_features=imf,
                                    text_layer=None if self.tensor_parallel else text_layer)

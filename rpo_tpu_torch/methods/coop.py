@@ -26,9 +26,6 @@ import torch
 from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.layers import TextLayer, layer_norm
 from ..models.clip.model import CLIPConfig, causal_mask, encode_image, text_transformer_run
-from ..ops.attention import Attention, MaskedAttention
-from ..ops.masked_attention import masked_attention
-from ..ops.rect_attention import rect_attention
 from ..tokenizer import get_tokenizer, tokenize
 from ..tokenizer.bpe import eot_len
 from .base_trainer import CLIPMethodTrainer
@@ -196,36 +193,30 @@ def text_encoder(
     cfg: CLIPConfig,
     prompts_emb: torch.Tensor,
     tokens: torch.Tensor,
-    masked_attn: MaskedAttention = masked_attention,
     text_layer: Optional[TextLayer] = None,
 ) -> torch.Tensor:
     """Causal text tower on pre-embedded prompts, then the EOT gather and
     the f32-accumulated projection.  Runs at ``prompts_emb``'s length
-    (exact, see ``CoOpTask.text_len``); the shared causal bias goes to
-    ``masked_attn``, or every whole block to ``text_layer`` where one is
-    given (see ``layers.transformer``)."""
+    (exact, see ``CoOpTask.text_len``); the shared causal bias goes to the
+    masked attention kernel, or every whole block to ``text_layer`` where
+    one is given (see ``layers.transformer``)."""
     t = clip_params["text"]
     L = prompts_emb.shape[1]
     x = prompts_emb + t["positional_embedding"][:L].to(prompts_emb.dtype)
     bias = causal_mask(L, x.device)[None, None]
-    x = text_transformer_run(t, cfg, x, bias, masked_attn=masked_attn, text_layer=text_layer)
+    x = text_transformer_run(t, cfg, x, bias, text_layer)
     x = layer_norm(x, t["ln_final"])
     eot_pos = tokens.argmax(dim=-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot_pos]
     return torch.matmul(x, t["text_projection"])
 
 
-def coop_text_features(
-    params: Params,
-    clip_params: Params,
-    task: CoOpTask,
-    masked_attn: MaskedAttention = masked_attention,
-) -> torch.Tensor:
+def coop_text_features(params: Params, clip_params: Params, task: CoOpTask) -> torch.Tensor:
     """(n_cls, embed_dim) class text features in the backbone's dtype."""
     emb = clip_params["text"]["token_embedding"]
     tokens = task.on(emb.device)["tokens"]
     prompts_emb = assemble_prompt_embeddings(params["ctx"], emb[tokens], task)
-    return text_encoder(clip_params, task.cfg, prompts_emb, tokens, masked_attn)
+    return text_encoder(clip_params, task.cfg, prompts_emb, tokens)
 
 
 def coop_logits(
@@ -235,15 +226,13 @@ def coop_logits(
     images: torch.Tensor,
     image_features: Optional[torch.Tensor] = None,
     text_f: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """(B, n_cls) cosine logits: both sides L2-normalised in float32, the
     scale exp(logit_scale) in float32."""
     if image_features is None:
-        image_features = encode_image(clip_params, task.cfg, images, rect_attn, masked_attn)
+        image_features = encode_image(clip_params, task.cfg, images)
     if text_f is None:
-        text_f = coop_text_features(params, clip_params, task, masked_attn)
+        text_f = coop_text_features(params, clip_params, task)
     img = image_features.float()
     txt = text_f.float()
     img = img / torch.linalg.vector_norm(img, dim=-1, keepdim=True)
@@ -304,17 +293,14 @@ class CoOp(CLIPMethodTrainer):
         def text_features(params, frozen):
             return coop_text_features(params, frozen["clip"], task)
 
-        def eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn):
-            return coop_logits(params, frozen["clip"], task, normalize(images_u8), text_f=text_f,
-                               rect_attn=rect_attn, masked_attn=masked_attn)
+        def eval_step(params, frozen, text_f, images_u8):
+            return coop_logits(params, frozen["clip"], task, normalize(images_u8), text_f=text_f)
 
-        # the text tower is the per-step work the TRAIN.MICROBATCH chunks
-        # share: once a step, on the live context, under grad
-        def precompute(params, frozen, masked_attn):
-            return coop_text_features(params, frozen["clip"], task, masked_attn)
-
-        def logits_fn(params, frozen, images_u8, text_f, rect_attn, masked_attn):
-            return eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn)
+        # the text tower (text_features) is the per-step work the
+        # TRAIN.MICROBATCH chunks share: once a step, on the live context,
+        # under grad
+        def logits_fn(params, frozen, images_u8, text_f):
+            return eval_step(params, frozen, text_f, images_u8)
 
         self._install_steps(text_features, eval_step,
-                            self._build_microbatched_train_step(logits_fn, precompute))
+                            self._build_microbatched_train_step(logits_fn, text_features))

@@ -19,9 +19,6 @@ import torch
 
 from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.model import CLIPConfig, encode_image, encode_text
-from ..ops.attention import Attention, MaskedAttention
-from ..ops.masked_attention import masked_attention
-from ..ops.rect_attention import rect_attention
 from ..tokenizer import eot_trim, tokenize
 from .base_trainer import CLIPMethodTrainer
 
@@ -33,15 +30,13 @@ def lp_text_features(
     cfg: CLIPConfig,
     classnames: Sequence[str],
     prompt: str,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """(n_cls, embed_dim) normalised float32 text features of
     ``prompt.format(cls_name=c)`` for each raw classname ``c``, tokens
     trimmed past the longest EOT."""
     tokens = eot_trim(tokenize([prompt.format(cls_name=c) for c in classnames]))
     device = clip_params["text"]["token_embedding"].device
-    tf = encode_text(clip_params, cfg, torch.from_numpy(tokens.astype(np.int64)).to(device),
-                     masked_attn).float()
+    tf = encode_text(clip_params, cfg, torch.from_numpy(tokens.astype(np.int64)).to(device)).float()
     return tf / torch.linalg.vector_norm(tf, dim=-1, keepdim=True)
 
 
@@ -51,11 +46,10 @@ def lp_logits(
     cfg: CLIPConfig,
     text_f: torch.Tensor,
     images: torch.Tensor,
-    rect_attn: Attention = rect_attention,
 ) -> torch.Tensor:
     """(B, n_cls): exp(logit_scale) times the probe's float32 output on the
     unnormalised image features, against ``text_f``."""
-    imf = encode_image(clip_params, cfg, images, rect_attn).float()
+    imf = encode_image(clip_params, cfg, images).float()
     imf = imf @ params["w"] + params["b"]
     scale = torch.exp(clip_params["logit_scale"].float())
     return scale * imf @ text_f.T
@@ -94,12 +88,11 @@ class LP(CLIPMethodTrainer):
         self._frozen = {"clip": self.clip_params, "text_f": text_f}
         normalize = self._normalize
 
-        def eval_step(params, frozen, _text_f, images_u8, rect_attn, _masked_attn):
-            return lp_logits(params, frozen["clip"], cfg, frozen["text_f"], normalize(images_u8),
-                             rect_attn)
+        def eval_step(params, frozen, _text_f, images_u8):
+            return lp_logits(params, frozen["clip"], cfg, frozen["text_f"], normalize(images_u8))
 
-        def logits_fn(params, frozen, images_u8, _ctx, rect_attn, masked_attn):
-            return eval_step(params, frozen, None, images_u8, rect_attn, masked_attn)
+        def logits_fn(params, frozen, images_u8, _ctx):
+            return eval_step(params, frozen, None, images_u8)
 
         self._install_steps(None, eval_step, self._build_microbatched_train_step(logits_fn))
 

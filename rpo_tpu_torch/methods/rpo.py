@@ -35,9 +35,7 @@ from ..models.clip.layers import (
     residual_block_kv,
 )
 from ..models.clip.model import CLIPConfig, causal_mask, text_transformer_run, vision_embed
-from ..ops.attention import NEG_INF, Attention, MaskedAttention
-from ..ops.masked_attention import masked_attention
-from ..ops.rect_attention import rect_attention
+from ..ops.attention import NEG_INF
 from ..tokenizer import EOT_TOKEN, tokenize
 
 Params = Dict[str, Any]
@@ -170,9 +168,7 @@ def precompute_text_x(clip_params: Params, task: RPOTask) -> torch.Tensor:
     return emb + t["positional_embedding"].to(emb.dtype)
 
 
-def precompute_text_kv(
-    clip_params: Params, task: RPOTask, masked_attn: MaskedAttention = masked_attention
-) -> Dict[str, torch.Tensor]:
+def precompute_text_kv(clip_params: Params, task: RPOTask) -> Dict[str, torch.Tensor]:
     """Per-layer frozen-text K/V.
 
     The text mask blocks every column >= idx_c for every row, so frozen
@@ -180,7 +176,7 @@ def precompute_text_kv(
     rows read only frozen columns.  Each layer's frozen K/V is computed
     once per task, truncated to T = max(len_prompts) columns (columns past
     the longest real sequence are masked for every class).  The causal
-    tower's attention is ``masked_attn`` (the kernel by default).
+    tower's attention is the masked attention kernel.
 
     Returns {"k", "v"}: (L_layers, n_cls, H, T, Dh).
     """
@@ -191,30 +187,23 @@ def precompute_text_kv(
     kv_len = int(task.len_prompts.max())
     ks, vs = [], []
     for i in range(n_layers(t["blocks"])):
-        x, k, v = residual_block_kv(x, layer_params(t["blocks"], i), cfg.text_heads, bias,
-                                    masked_attn=masked_attn)
+        x, k, v = residual_block_kv(x, layer_params(t["blocks"], i), cfg.text_heads, bias)
         ks.append(k[:, :, :kv_len])
         vs.append(v[:, :, :kv_len])
     return {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
-def make_frozen(
-    clip_params: Params,
-    task: RPOTask,
-    cache_text_kv: bool = True,
-    masked_attn: MaskedAttention = masked_attention,
-) -> Params:
+def make_frozen(clip_params: Params, task: RPOTask, cache_text_kv: bool = True) -> Params:
     """Bundle every non-trainable tensor the RPO forward reads.
 
-    cache_text_kv=True adds the per-layer frozen-text K/V cache (built on
-    ``masked_attn``), which switches encode_text_with_prompts to the
-    prompt-rows-only path; False keeps what the masked text formulation
-    reads instead.
+    cache_text_kv=True adds the per-layer frozen-text K/V cache, which
+    switches encode_text_with_prompts to the prompt-rows-only path; False
+    keeps what the masked text formulation reads instead.
     """
     device = clip_params["logit_scale"].device
     bundle = {"clip": clip_params}
     if cache_text_kv:
-        kv = precompute_text_kv(clip_params, task, masked_attn)
+        kv = precompute_text_kv(clip_params, task)
         bundle["text_kv"] = kv
         bundle["prompt_col_mask"] = torch.from_numpy(
             build_prompt_col_mask(task.len_prompts, kv["k"].shape[-2])
@@ -283,7 +272,6 @@ def encode_image_with_prompts(
     frozen: Params,
     task: RPOTask,
     images: torch.Tensor,
-    rect_attn: Attention = rect_attention,
     vision_layer: Optional[VisionLayer] = None,
 ) -> torch.Tensor:
     """Vision tower with appended prompts -> prompt features (B, K, embed).
@@ -291,11 +279,9 @@ def encode_image_with_prompts(
     One joint pass per layer over cls+patches+prompts in which keys and
     values come only from the frozen rows (rect_residual_block): the
     visual mask blocks the K prompt columns for every row, so the masked
-    K/V are never computed and no (S, S) bias exists.  ``rect_attn``
-    lets a caller run the tower on the plain attention instead of the
-    kernel.  ``vision_layer`` (``fused_rect_residual_block`` or its plain
-    version) runs each whole block instead; None keeps
-    ``rect_residual_block`` on ``rect_attn``.
+    K/V are never computed and no (S, S) bias exists.  ``vision_layer``
+    (``fused_rect_residual_block`` or its plain version) runs each whole
+    block instead; None keeps ``rect_residual_block``.
     """
     cfg = task.cfg
     v = frozen["clip"]["visual"]
@@ -309,7 +295,7 @@ def encode_image_with_prompts(
     for i in range(n_layers(v["blocks"])):
         blk = layer_params(v["blocks"], i)
         if vision_layer is None:
-            x = rect_residual_block(x, blk, cfg.vision_heads, n_kv, rect_attn)
+            x = rect_residual_block(x, blk, cfg.vision_heads, n_kv)
         else:
             x = vision_layer(x, blk, cfg.vision_heads, n_kv)
     feats = layer_norm(x[:, -K:, :], v["ln_post"])  # (B, K, d_v)
@@ -321,7 +307,6 @@ def encode_image_prompts_split(
     frozen: Params,
     task: RPOTask,
     images: torch.Tensor,
-    rect_attn: Attention = rect_attention,
 ) -> torch.Tensor:
     """Training-path vision tower: frozen rows and prompt rows split ->
     prompt features (B, K, embed).
@@ -334,7 +319,7 @@ def encode_image_prompts_split(
     ``cross_residual_block`` on that layer's k, v, so the backward covers
     the K prompt rows only.  The same function as
     ``encode_image_with_prompts``; both attentions are bias-free and go
-    to ``rect_attn``.
+    to the rect attention kernel.
     """
     cfg = task.cfg
     v = frozen["clip"]["visual"]
@@ -347,8 +332,8 @@ def encode_image_prompts_split(
     for i in range(n_layers(v["blocks"])):
         blk = layer_params(v["blocks"], i)
         with torch.no_grad():
-            x_f, k, v_heads = residual_block_kv(x_f, blk, cfg.vision_heads, None, rect_attn)
-        x_p = cross_residual_block(x_p, k, v_heads, blk, cfg.vision_heads, None, rect_attn)
+            x_f, k, v_heads = residual_block_kv(x_f, blk, cfg.vision_heads)
+        x_p = cross_residual_block(x_p, k, v_heads, blk, cfg.vision_heads)
     feats = layer_norm(x_p, v["ln_post"])  # (B, K, d_v)
     return torch.matmul(feats, v["proj"])
 
@@ -359,7 +344,6 @@ def rpo_logits(
     task: RPOTask,
     images: torch.Tensor,
     text_f: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
     vision_layer: Optional[VisionLayer] = None,
     split_vision: bool = False,
 ) -> torch.Tensor:
@@ -367,16 +351,15 @@ def rpo_logits(
     scaled cosine similarity.  Pass a precomputed ``text_f`` for
     evaluation (the text tower runs once per task).  ``split_vision``
     selects the training tower (``encode_image_prompts_split``), else
-    ``encode_image_with_prompts`` runs with ``vision_layer``;
-    ``rect_attn`` goes to either."""
+    ``encode_image_with_prompts`` runs with ``vision_layer``."""
     if text_f is None:
         text_f = encode_text_with_prompts(prompts, frozen, task)
     if split_vision:
         if vision_layer is not None:
             raise ValueError("the split vision tower takes no vision_layer")
-        img_f = encode_image_prompts_split(prompts, frozen, task, images, rect_attn)
+        img_f = encode_image_prompts_split(prompts, frozen, task, images)
     else:
-        img_f = encode_image_with_prompts(prompts, frozen, task, images, rect_attn, vision_layer)
+        img_f = encode_image_with_prompts(prompts, frozen, task, images, vision_layer)
     text_f = text_f.float()
     img_f = img_f.float()
     text_f = text_f / torch.linalg.vector_norm(text_f, dim=-1, keepdim=True)
@@ -393,12 +376,10 @@ def rpo_loss(
     images: torch.Tensor,
     labels: torch.Tensor,
     split_vision: bool = True,
-    rect_attn: Attention = rect_attention,
 ):
     """Cross-entropy over the batch; returns (loss, logits).  The split
     vision tower by default: the training path."""
-    logits = rpo_logits(prompts, frozen, task, images, rect_attn=rect_attn,
-                        split_vision=split_vision)
+    logits = rpo_logits(prompts, frozen, task, images, split_vision=split_vision)
     log_probs = torch.log_softmax(logits, dim=-1)
     loss = -log_probs.gather(-1, labels.long()[:, None]).mean()
     return loss, logits

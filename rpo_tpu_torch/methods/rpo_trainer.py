@@ -88,22 +88,15 @@ class RPO(CLIPMethodTrainer):
         def text_features(params, frozen):
             return core.encode_text_with_prompts(params, frozen, task)
 
-        def eval_step(params, frozen, text_f, images_u8, rect_attn, masked_attn):
-            # the rect tower reads no bias: masked_attn has nothing to replace
-            return core.rpo_logits(
-                params, frozen, task, normalize(images_u8), text_f=text_f, rect_attn=rect_attn,
-                vision_layer=vision_layer,
-            )
-
-        # the text tower is the per-step work shared by microbatch chunks:
-        # once a step, on the live prompts, under grad; the cached text
-        # path reads no square bias, so masked_attn has nothing to replace
-        def precompute(params, frozen, masked_attn):
-            return core.encode_text_with_prompts(params, frozen, task)
-
-        def logits_fn(params, frozen, images_u8, text_f, rect_attn, masked_attn):
+        def eval_step(params, frozen, text_f, images_u8):
             return core.rpo_logits(params, frozen, task, normalize(images_u8), text_f=text_f,
-                                   rect_attn=rect_attn, split_vision=True)
+                                   vision_layer=vision_layer)
+
+        # the text tower (text_features) is the per-step work shared by
+        # microbatch chunks: once a step, on the live prompts, under grad
+        def logits_fn(params, frozen, images_u8, text_f):
+            return core.rpo_logits(params, frozen, task, normalize(images_u8), text_f=text_f,
+                                   split_vision=True)
 
         self._install_steps(text_features, eval_step,
-                            self._build_microbatched_train_step(logits_fn, precompute))
+                            self._build_microbatched_train_step(logits_fn, text_features))

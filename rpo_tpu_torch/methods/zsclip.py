@@ -24,9 +24,6 @@ import torch
 
 from ..engine.registry import TRAINER_REGISTRY
 from ..models.clip.model import CLIPConfig, encode_image, encode_text
-from ..ops.attention import Attention, MaskedAttention
-from ..ops.masked_attention import masked_attention
-from ..ops.rect_attention import rect_attention
 from ..tokenizer import eot_trim, tokenize
 from .base_trainer import CLIPMethodTrainer
 from .templates import CUSTOM_TEMPLATES, IMAGENET_TEMPLATES_SELECT
@@ -42,19 +39,15 @@ def template_tokens(classnames: Sequence[str], templates: Sequence[str]) -> np.n
     return eot_trim(tokens.reshape(n_t * n_cls, -1)).reshape(n_t, n_cls, -1)
 
 
-def zeroshot_text_features(
-    clip_params: dict,
-    cfg: CLIPConfig,
-    tokens: torch.Tensor,
-    masked_attn: MaskedAttention = masked_attention,
-) -> torch.Tensor:
+def zeroshot_text_features(clip_params: dict, cfg: CLIPConfig,
+                           tokens: torch.Tensor) -> torch.Tensor:
     """Normalised ensemble text features (n_cls, embed_dim) in float32 from
     (n_templates, n_cls, L) tokens: each template's features in float32,
     normalised; the mean over templates, normalised again.  One text tower
     per template (the JAX ``lax.map``)."""
     feats = []
     for toks in tokens:
-        tf = encode_text(clip_params, cfg, toks, masked_attn).float()
+        tf = encode_text(clip_params, cfg, toks).float()
         feats.append(tf / torch.linalg.vector_norm(tf, dim=-1, keepdim=True))
     mean = torch.stack(feats).mean(dim=0)
     return mean / torch.linalg.vector_norm(mean, dim=-1, keepdim=True)
@@ -65,12 +58,10 @@ def zeroshot_logits(
     cfg: CLIPConfig,
     images: torch.Tensor,
     text_f: torch.Tensor,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """(B, n_cls): exp(logit_scale) times the float32 normalised image
     features against the normalised text features."""
-    imf = encode_image(clip_params, cfg, images, rect_attn, masked_attn).float()
+    imf = encode_image(clip_params, cfg, images).float()
     imf = imf / torch.linalg.vector_norm(imf, dim=-1, keepdim=True)
     scale = torch.exp(clip_params["logit_scale"].float())
     return scale * imf @ text_f.T
@@ -115,9 +106,8 @@ class ZeroshotCLIP(CLIPMethodTrainer):
         def text_features(_params, frozen):
             return zeroshot_text_features(frozen["clip"], cfg, self.text_tokens())
 
-        def eval_step(_params, frozen, text_f, images_u8, rect_attn, masked_attn):
-            return zeroshot_logits(frozen["clip"], cfg, normalize(images_u8), text_f, rect_attn,
-                                   masked_attn)
+        def eval_step(_params, frozen, text_f, images_u8):
+            return zeroshot_logits(frozen["clip"], cfg, normalize(images_u8), text_f)
 
         self._install_steps(text_features, eval_step)
 

@@ -24,16 +24,12 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.attention import (
-    Attention,
-    MaskedAttention,
     multihead_attention,
     multihead_attention_cached,
     multihead_attention_kv,
     multihead_attention_rect,
 )
 from ...ops.fused_text_layer import fused_text_tower
-from ...ops.masked_attention import masked_attention
-from ...ops.rect_attention import rect_attention
 from ...parallel import tp
 
 # (x, one layer's params, n_heads, (L, L) mask) -> x, a whole residual block
@@ -84,12 +80,8 @@ def residual_block(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
-    x = x + multihead_attention(
-        layer_norm(x, params["ln_1"]), params["attn"], n_heads, bias, rect_attn, masked_attn
-    )
+    x = x + multihead_attention(layer_norm(x, params["ln_1"]), params["attn"], n_heads, bias)
     x = x + mlp(layer_norm(x, params["ln_2"]), params["mlp"])
     return x
 
@@ -99,14 +91,11 @@ def residual_block_kv(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ):
     """residual_block that also returns this layer's (k, v) heads
     ((B, H, L, Dh)), the per-layer state of the RPO frozen-text cache."""
-    attn_out, k, v = multihead_attention_kv(
-        layer_norm(x, params["ln_1"]), params["attn"], n_heads, bias, rect_attn, masked_attn
-    )
+    attn_out, k, v = multihead_attention_kv(layer_norm(x, params["ln_1"]), params["attn"],
+                                            n_heads, bias)
     x = x + attn_out
     x = x + mlp(layer_norm(x, params["ln_2"]), params["mlp"])
     return x, k, v
@@ -117,13 +106,10 @@ def rect_residual_block(
     params: dict,
     n_heads: int,
     n_kv: int,
-    rect_attn: Attention = rect_attention,
 ) -> torch.Tensor:
     """Residual block whose attention lets every row read only the first
     ``n_kv`` rows (the RPO eval-path vision tower)."""
-    x = x + multihead_attention_rect(
-        layer_norm(x, params["ln_1"]), params["attn"], n_heads, n_kv, rect_attn
-    )
+    x = x + multihead_attention_rect(layer_norm(x, params["ln_1"]), params["attn"], n_heads, n_kv)
     x = x + mlp(layer_norm(x, params["ln_2"]), params["mlp"])
     return x
 
@@ -135,15 +121,12 @@ def cross_residual_block(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Residual block whose attention reads precomputed (k, v) heads
     instead of self-attending: the query rows never contribute keys or
     values (the RPO read-only prompt rows)."""
-    x = x + multihead_attention_cached(
-        layer_norm(x, params["ln_1"]), k, v, params["attn"], n_heads, bias, rect_attn, masked_attn
-    )
+    x = x + multihead_attention_cached(layer_norm(x, params["ln_1"]), k, v, params["attn"],
+                                       n_heads, bias)
     x = x + mlp(layer_norm(x, params["ln_2"]), params["mlp"])
     return x
 
@@ -153,13 +136,10 @@ def transformer(
     stacked_blocks: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
     text_layer: Optional[TextLayer] = None,
 ) -> torch.Tensor:
     """Run a stack of residual blocks over params with a leading
-    [n_layers] axis.  ``rect_attn`` and ``masked_attn`` are the attention
-    functions every block uses (the kernels by default).
+    [n_layers] axis.
 
     ``text_layer`` (``fused_text_layer`` or its plain version) runs each
     whole block instead, through ``fused_text_tower``, where the guard of
@@ -179,6 +159,6 @@ def transformer(
         return fused_text_tower(x, stacked_blocks, n_heads, bias[0, 0], text_layer)
     for i in range(n_layers(stacked_blocks)):
         x = residual_block(
-            x, layer_params(stacked_blocks, i), n_heads, bias, rect_attn, masked_attn
+            x, layer_params(stacked_blocks, i), n_heads, bias
         )
     return x

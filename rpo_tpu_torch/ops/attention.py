@@ -12,8 +12,8 @@ row-aligned (1 | B, 1, L, L) bias — the text towers' masks — goes to
 version on a CPU tensor).  Every other bias — column-broadcast, per-head,
 the cached text cross-attention (Lq != Lk) — runs the plain f32-softmax
 math here, as the JAX package sends it to XLA.  The dispatch looks at
-shapes only: the JAX package's thread-local Pallas scope and its
-environment switches have no counterpart here.
+shapes only: the JAX package's environment switches have no counterpart
+here.
 
 Tensor parallelism (``parallel/tp.py``, JAX's ``shard_heads``): a block
 whose q/k/v weight holds a slice of the heads (narrower than 3D) runs
@@ -21,13 +21,16 @@ those heads only, the kernels on them, and its out-projection sums the
 float32 partial products over the model group (``tp.row_parallel``)
 before the cast and the bias.
 
-The attention functions are arguments (``rect_attn``, ``masked_attn``)
-with the kernels as defaults, threaded down from the towers, so that a
-caller can run the same path on the plain versions.
+The two attention functions are read here at call time, from one
+module-level pair: the kernels, unless a comparison runs the same path on
+other functions (their plain versions, a recording wrapper) inside
+``attention_functions``, the counterpart of the JAX package's
+``pallas_attention_scope``.  Nothing in the program enters it, so the
+layers, towers, methods and trainers above take no attention function.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -39,6 +42,35 @@ NEG_INF = -1e9  # finite -inf stand-in: keeps softmax NaN-free for fully masked 
 
 Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 MaskedAttention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+# (rect, masked): the functions every attention call above reads
+_current: Tuple[Attention, MaskedAttention] = (rect_attention, masked_attention)
+
+
+def current_attention() -> Tuple[Attention, MaskedAttention]:
+    """The (rect, masked) attention functions in force."""
+    return _current
+
+
+class attention_functions:
+    """``with attention_functions(rect=..., masked=...):`` runs the block on
+    ``rect`` and/or ``masked`` in place of the functions in force (None
+    keeps one); the previous pair comes back on exit, an exception's too.
+    For comparisons only: tests, the selftest and the chip smoke run a
+    path on the plain versions this way."""
+
+    def __init__(self, rect: Optional[Attention] = None,
+                 masked: Optional[MaskedAttention] = None) -> None:
+        self._swap = (rect, masked)
+
+    def __enter__(self) -> None:
+        global _current
+        self._prev = _current
+        _current = tuple(new or old for new, old in zip(self._swap, _current))
+
+    def __exit__(self, *exc) -> None:
+        global _current
+        _current = self._prev
 
 
 def takes_masked_kernel(q: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> bool:
@@ -62,14 +94,13 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Scaled dot-product attention.
 
     q, k, v: (B, H, L, Dh).  bias: broadcastable to (B, H, Lq, Lk), float32
     additive.  Returns (B, H, Lq, Dh) in v.dtype.
     """
+    rect_attn, masked_attn = _current
     if bias is None:
         return rect_attn(q, k, v)
     if takes_masked_kernel(q, k, bias):
@@ -131,8 +162,6 @@ def multihead_attention(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Self-attention over x: (B, L, D) with the fused QKV projection.
 
@@ -140,7 +169,7 @@ def multihead_attention(
     weights in the (in, out) layout.
     """
     q, k, v = _split_qkv(x, params, n_heads)
-    out = dot_product_attention(q, k, v, bias, rect_attn, masked_attn)
+    out = dot_product_attention(q, k, v, bias)
     return _out_proj(out, params, x.dtype)
 
 
@@ -149,14 +178,12 @@ def multihead_attention_kv(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ):
     """Like multihead_attention, but also returns the (k, v) heads
     ((B, H, L, Dh) each) for a later cross-attention (the RPO frozen-text
     K/V cache)."""
     q, k, v = _split_qkv(x, params, n_heads)
-    out = dot_product_attention(q, k, v, bias, rect_attn, masked_attn)
+    out = dot_product_attention(q, k, v, bias)
     return _out_proj(out, params, x.dtype), k, v
 
 
@@ -165,16 +192,11 @@ def multihead_attention_rect(
     params: dict,
     n_heads: int,
     n_kv: int,
-    rect_attn: Attention = rect_attention,
 ) -> torch.Tensor:
     """Self-attention where only the first ``n_kv`` rows contribute keys
     and values: queries for all L rows, k/v for x[:, :n_kv].  Equal to
     full self-attention under a mask blocking columns >= n_kv, without
-    computing the masked K/V or any bias.
-
-    ``rect_attn`` is the attention function; a caller may pass
-    ``rect_attention_reference`` to run the same path on the plain
-    version."""
+    computing the masked K/V or any bias."""
     D = x.shape[-1]
     w, b = params["qkv_w"], params["qkv_b"]
     heads = _heads_here(params, D, n_heads)
@@ -183,7 +205,7 @@ def multihead_attention_rect(
     q = _head_proj(x, w[:, :qw], b[:qw], heads)
     kv = _head_proj(x[:, :n_kv], w[:, qw:], b[qw:], 2 * heads)
     k, v = kv[:, :heads], kv[:, heads:]
-    out = rect_attn(q, k, v)
+    out = _current[0](q, k, v)
     return _out_proj(out, params, x.dtype)
 
 
@@ -194,17 +216,15 @@ def multihead_attention_cached(
     params: dict,
     n_heads: int,
     bias: Optional[torch.Tensor] = None,
-    rect_attn: Attention = rect_attention,
-    masked_attn: MaskedAttention = masked_attention,
 ) -> torch.Tensor:
     """Cross-attention of query rows x_q (B, Lq, D) against precomputed
     key/value heads k, v (B, H, Lk, Dh): only the q slice of the fused QKV
     projection is computed.  Without a bias (the split vision tower's
-    prompt rows) it goes to ``rect_attn``; the cached text path's
+    prompt rows) it goes to the rect function; the cached text path's
     column-broadcast bias takes the plain math."""
     D = x_q.shape[-1]
     qw = params["qkv_w"].shape[-1] // 3
     q = _head_proj(_qkv_input(x_q, params), params["qkv_w"][:, :qw], params["qkv_b"][:qw],
                    _heads_here(params, D, n_heads))
-    out = dot_product_attention(q, k.to(x_q.dtype), v.to(x_q.dtype), bias, rect_attn, masked_attn)
+    out = dot_product_attention(q, k.to(x_q.dtype), v.to(x_q.dtype), bias)
     return _out_proj(out, params, x_q.dtype)

@@ -350,6 +350,7 @@ def checks(tol: float = BF16_TOL, device="cuda",
     from . import masked_attention as ma
     from . import preprocess
     from . import rect_attention as ra
+    from .attention import attention_functions
 
     slot = {"rect_attention": ra.rect_attention, "masked_attention": ma.masked_attention,
             "fused_text_layer": ftl.fused_text_layer,
@@ -679,8 +680,10 @@ def checks(tol: float = BF16_TOL, device="cuda",
         blk = random_block(gen, 768, device)
         x = (torch.randn(4, 221, 768, generator=gen, device=device) * 0.1).to(BF16)
         with torch.no_grad():
-            out = rect_residual_block(x, blk, 12, 197, rect_attn=slot["rect_attention"])
-            ref = rect_residual_block(x, blk, 12, 197, rect_attn=ra.rect_attention_reference)
+            with attention_functions(rect=slot["rect_attention"]):
+                out = rect_residual_block(x, blk, 12, 197)
+            with attention_functions(rect=ra.rect_attention_reference):
+                ref = rect_residual_block(x, blk, 12, 197)
         err = _max_err(out, ref)
         rel = ((out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
         return Reading(rel, _finite(out), f"max_abs_err {err:.3e}; max err / max(|plain|, 1), "
@@ -703,20 +706,20 @@ def checks(tol: float = BF16_TOL, device="cuda",
         blk = random_block(gen, 768, device)
         x = (torch.randn(4, 221, 768, generator=gen, device=device) * 0.1).to(BF16)
 
-        def eval_step(_params, _frozen, _text_f, rows, rect):
-            return rect_residual_block(rows, blk, 12, 197, rect_attn=rect)
+        def eval_step(_params, _frozen, _text_f, rows):
+            return rect_residual_block(rows, blk, 12, 197)
 
-        with torch.no_grad(), process_group(device) as mesh:
+        with torch.no_grad(), process_group(device) as mesh, \
+                attention_functions(rect=slot["rect_attention"]):
             step = dp.shard_eval_step_local(eval_step, mesh)
             # a larger group's ranks each hold their rows and the gather brings
             # the rest; a one-rank group runs the halves in turn
             halves = ([dp.local_rows(len(x), mesh)] if mesh.dp > 1 else
                       [dp.local_rows(len(x), dp.Mesh(r, 2, mesh.backend, 2)) for r in range(2)])
-            out = torch.cat([step(None, None, None, x[a:b], slot["rect_attention"])
-                             for a, b in halves])
+            out = torch.cat([step(None, None, None, x[a:b]) for a, b in halves])
             world = mesh.world
-        with torch.no_grad():
-            ref = rect_residual_block(x, blk, 12, 197, rect_attn=ra.rect_attention_reference)
+        with torch.no_grad(), attention_functions(rect=ra.rect_attention_reference):
+            ref = rect_residual_block(x, blk, 12, 197)
         err = _max_err(out, ref)
         rel = ((out.float() - ref.float()).abs() / ref.float().abs().clamp(min=1.0)).max().item()
         return Reading(rel, _finite(out), f"max_abs_err {err:.3e} over {world} rank(s), rows "

@@ -212,13 +212,13 @@ def reduce_step(mesh: Mesh, grads: Sequence[torch.Tensor], nll_sum: torch.Tensor
 
 
 def shard_eval_step_local(eval_step: Callable, mesh: Mesh) -> Callable:
-    """``eval_step(params, frozen, text_f, images, *kernels)`` on this
-    rank's rows, its logits gathered back to the global batch: evaluation
-    needs no other collective, every logit row depends on its own image
-    only, so the kernels run on each rank's rows whole."""
+    """``eval_step(params, frozen, text_f, images)`` on this rank's rows,
+    its logits gathered back to the global batch: evaluation needs no
+    other collective, every logit row depends on its own image only, so
+    the kernels run on each rank's rows whole."""
 
-    def step(params, frozen, text_f, images, *kernels):
-        return gather_rows(eval_step(params, frozen, text_f, images, *kernels), mesh)
+    def step(params, frozen, text_f, images):
+        return gather_rows(eval_step(params, frozen, text_f, images), mesh)
 
     return step
 

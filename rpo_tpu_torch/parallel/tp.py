@@ -304,14 +304,14 @@ def row_parallel(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype) -> to
 # "model", state and backbone whole) -------------------------------------------
 
 def shard_eval_step_tp(eval_step: Callable, mesh: dpmod.Mesh) -> Callable:
-    """``eval_step(params, frozen, text_f, images, *kernels)`` under dp x
-    tp: this rank's data rows through the sliced towers, the logits
-    gathered over the data group."""
+    """``eval_step(params, frozen, text_f, images)`` under dp x tp: this
+    rank's data rows through the sliced towers, the logits gathered over
+    the data group."""
     local = dpmod.shard_eval_step_local(eval_step, mesh)
 
-    def step(*args):
+    def step(params, frozen, text_f, images):
         with tensor_parallel_scope(mesh):
-            return local(*args)
+            return local(params, frozen, text_f, images)
 
     return step
 

@@ -6,6 +6,8 @@ package's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_port_gpu.py
 """
+from functools import partial
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from rpo_tpu_torch.methods.rpo import build_text_mask, build_visual_mask
 from rpo_tpu_torch.models.clip.model import causal_mask
 from rpo_tpu_torch.ops import masked_attention as ma
 from rpo_tpu_torch.ops import rect_attention as ra
+from rpo_tpu_torch.ops.attention import attention_functions, current_attention
 
 
 @pytest.fixture(autouse=True)
@@ -520,11 +523,12 @@ def test_rpo_train_step_kernels_against_plain_on_gpu():
     torch.cuda.synchronize()
     assert ra.launches - rect0 == 2 * rpo.clip_cfg.vision_layers
     plain = RPO(classnames, K=4, backbone="TINY_W128", prec="fp16", seed=1)
-    plain._frozen = core.make_frozen(plain.clip_params, plain.task,
-                                     masked_attn=ma.masked_attention_reference)
-    refs = dict(rect_attn=ra.rect_attention_reference, masked_attn=ma.masked_attention_reference)
-    rect1 = ra.launches
-    p_loss, p_logits, p_grads = plain.loss_and_grads(images, labels, mask, **refs)
+    on_plain = partial(attention_functions, rect=ra.rect_attention_reference,
+                       masked=ma.masked_attention_reference)
+    with on_plain():
+        plain._frozen = core.make_frozen(plain.clip_params, plain.task)
+        rect1 = ra.launches
+        p_loss, p_logits, p_grads = plain.loss_and_grads(images, labels, mask)
     assert ra.launches == rect1  # the plain run launches nothing
     assert bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (4, 6)
     assert abs(loss.item() - p_loss.item()) <= 5e-2
@@ -536,7 +540,8 @@ def test_rpo_train_step_kernels_against_plain_on_gpu():
         assert err <= 0.1 and cos >= 0.99, (key, err, cos)
     for _ in range(3):
         a = rpo.train_step(images, labels, mask, 0.01)[0].item()
-        b = plain.train_step(images, labels, mask, 0.01, **refs)[0].item()
+        with on_plain():
+            b = plain.train_step(images, labels, mask, 0.01)[0].item()
         assert abs(a - b) <= 5e-2
 
 
@@ -659,7 +664,7 @@ def test_baseline_graph_replays_equal_eager_steps_on_gpu(name, batch):
     trainer.set_ckpt_state(trainer.model_name, first)  # in place: a fresh optimizer
     trainer.current_lr = 0.01
     replays = torch.stack([trainer.forward_backward(b)["loss"] for b in batches])
-    graph = trainer._graphs[(1, batch_spec(batches[0]))]
+    graph = trainer._graphs[(1, batch_spec(batches[0]), current_attention())]
     assert graph.replays == 3
     assert torch.equal(replays, eager), (replays, eager)
     assert all(map(torch.equal, optim.tree_leaves(trainer.params), eager_params))
@@ -667,6 +672,31 @@ def test_baseline_graph_replays_equal_eager_steps_on_gpu(name, batch):
     towers = {"CoOp": 1, "CoCoOp": 2 if batch >= 16 else 1, "LP": 0}[name]
     assert graph.launches_per_replay["rect_attention.launches"] == cfg.vision_layers
     assert graph.launches_per_replay["masked_attention.launches"] == cfg.text_layers * towers
+
+
+@pytest.mark.gpu
+def test_graph_cache_keys_the_attention_functions_on_gpu():
+    """A train step dispatched inside ``attention_functions`` on the plain
+    versions captures and replays a graph of its own, which launches
+    neither attention kernel; outside it the kernels' graph replays."""
+    from rpo_tpu_torch.methods.step_graph import batch_spec
+
+    trainer = _gpu_baseline("CoOp")
+    batch = _baseline_batches(1, 4)[0]
+    trainer.current_lr = 0.01
+    trainer.forward_backward(batch)
+    graph = trainer._graph(1, batch_spec(batch))
+    with attention_functions(rect=ra.rect_attention_reference,
+                             masked=ma.masked_attention_reference):
+        trainer.forward_backward(batch)
+        plain = trainer._graph(1, batch_spec(batch))
+    trainer.forward_backward(batch)
+    torch.cuda.synchronize()
+    assert plain is not graph and len(trainer._graphs) == 2
+    assert (graph.replays, plain.replays) == (2, 1)
+    assert graph.launches_per_replay["rect_attention.launches"] == trainer.clip_cfg.vision_layers
+    assert plain.launches_per_replay["rect_attention.launches"] == 0
+    assert plain.launches_per_replay["masked_attention.launches"] == 0
 
 
 @pytest.mark.gpu
@@ -781,7 +811,7 @@ def test_coop_rn50_graph_replays_equal_eager_steps_on_gpu():
     trainer.set_ckpt_state(trainer.model_name, first)
     trainer.current_lr = 0.01
     replays = torch.stack([trainer.forward_backward(b)["loss"] for b in batches])
-    graph = trainer._graphs[(1, batch_spec(batches[0]))]
+    graph = trainer._graphs[(1, batch_spec(batches[0]), current_attention())]
     assert graph.replays == 3
     assert torch.equal(replays, eager), (replays, eager)
     assert all(map(torch.equal, optim.tree_leaves(trainer.params), eager_params))

@@ -98,3 +98,21 @@ def test_no_fallback_around_the_kernels():
             assert called <= {"Reading", "type", "print_exc", "is_cuda_error"}, called
             continue
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), path.name
+
+
+def test_no_attention_function_parameter_above_ops():
+    """The choice of attention functions lives in ``ops/attention.py``
+    (``attention_functions``): no function of the package outside
+    ``ops/`` takes a ``rect_attn`` or ``masked_attn`` parameter."""
+    ops = ROOT / "rpo_tpu_torch" / "ops"
+    found = []
+    for path in sorted((ROOT / "rpo_tpu_torch").rglob("*.py")):
+        if ops in path.parents:
+            continue
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                a = node.args
+                names = {p.arg for p in a.posonlyargs + a.args + a.kwonlyargs}
+                found += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                          for n in sorted(names & {"rect_attn", "masked_attn"})]
+    assert not found, found

@@ -5,6 +5,8 @@ LayerNorm affine terms, made with numpy from a seed) and the same input
 on both sides.  Where the JAX function reaches a Pallas kernel it runs in
 interpret mode, forced on as tests/test_pallas_attention.py forces it.
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,3 +211,57 @@ def test_cpu_bf16_matmul_rounds_once_from_f32():
     want = (h.float() @ params["proj_w"].float()).bfloat16() + b
     diff = (tlayers.mlp(x, params).float() - want.float()).abs()
     assert float((diff > 0).float().mean()) < 1e-2
+
+
+@pytest.mark.parametrize("exit_by", ["return", "raise"])
+@pytest.mark.parametrize("swap", ["rect", "masked", "both"])
+def test_attention_functions_swap_nest_and_restore(swap, exit_by):
+    """``attention_functions`` puts the given functions in force for the
+    layers above ``ops`` (a bias-free block and a rect block reach the
+    rect one, a causal block the masked one), nests inside another, and
+    restores the previous pair on a normal exit and on an exception."""
+    from rpo_tpu_torch.ops import masked_attention as ma
+    from rpo_tpu_torch.ops import rect_attention as ra
+
+    _, _, tp, tx = _case("float32", seed=8)
+    causal = torch.from_numpy(_causal(tx.shape[1]))
+    calls = []
+
+    def recording(name, fn):
+        return lambda *args: calls.append(name) or fn(*args)
+
+    def run():
+        calls.clear()
+        out = (tlayers.residual_block(tx, tp, 2), tlayers.rect_residual_block(tx, tp, 2, 5),
+               tlayers.residual_block(tx, tp, 2, causal))
+        return out, list(calls)
+
+    default = tattn.current_attention()
+    assert default == (ra.rect_attention, ma.masked_attention)
+    want, none = run()
+    assert none == []
+    outer_rect = recording("outer rect", ra.rect_attention_reference)
+    inner = {kind: recording(f"inner {kind}", ref) for kind, ref in (
+        ("rect", ra.rect_attention_reference), ("masked", ma.masked_attention_reference))
+        if swap in (kind, "both")}
+    rect_name = "inner rect" if "rect" in inner else "outer rect"
+    masked_name = "inner masked" if "masked" in inner else None
+
+    class Planted(Exception):
+        pass
+
+    with tattn.attention_functions(rect=outer_rect):
+        assert tattn.current_attention() == (outer_rect, ma.masked_attention)
+        assert run()[1] == ["outer rect", "outer rect"]
+        with pytest.raises(Planted) if exit_by == "raise" else contextlib.nullcontext():
+            with tattn.attention_functions(**inner):
+                assert tattn.current_attention() == (
+                    inner.get("rect", outer_rect), inner.get("masked", ma.masked_attention))
+                got, seen = run()
+                assert seen == [rect_name, rect_name] + [masked_name] * (masked_name is not None)
+                assert all(map(torch.equal, got, want))
+                if exit_by == "raise":
+                    raise Planted
+        assert tattn.current_attention() == (outer_rect, ma.masked_attention)
+    assert tattn.current_attention() == default
+    assert run()[1] == []

@@ -166,8 +166,9 @@ def test_dispatch_predicate_is_the_jax_guard(name):
 
 @pytest.mark.parametrize("name", [n for n in GUARD_CASES if n != "bias batch 2 against batch 3"])
 def test_dispatch_routes_and_plain_branch_matches_xla(name):
-    """A bias that passes the guard goes to ``masked_attn``; every other
-    bias takes the plain math, which equals the JAX package's XLA branch."""
+    """A bias that passes the guard goes to the masked function in force;
+    every other bias takes the plain math, which equals the JAX package's
+    XLA branch."""
     q_shape, Lk, bias_shape = GUARD_CASES[name]
     B, H, Lq, D = q_shape
     r = np.random.RandomState(5)
@@ -180,7 +181,8 @@ def test_dispatch_routes_and_plain_branch_matches_xla(name):
         return ma.masked_attention_reference(*args)
 
     t = [torch.from_numpy(a.astype(np.float32)) for a in (q, k, v, bias)]
-    got = tattn.dot_product_attention(*t, masked_attn=masked)
+    with tattn.attention_functions(masked=masked):
+        got = tattn.dot_product_attention(*t)
     assert len(calls) == tattn.takes_masked_kernel(t[0], t[1], t[3])
     want = jattn.dot_product_attention(*(jnp.asarray(a, jnp.float32) for a in (q, k, v, bias)))
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL["float32"])

@@ -388,7 +388,7 @@ def test_graph_replays_equal_eager_steps_on_gpu(device_resize):
         assert torch.equal(torch.stack(losses), torch.stack(eager)), n
         for key, t in rpo.params.items():
             assert torch.equal(t, eager_prompts[key]), (n, key)
-        graph = next(g for (steps, _), g in rpo._graphs.items() if steps == n)
+        graph = next(g for (steps, *_), g in rpo._graphs.items() if steps == n)
         assert graph.launches_per_replay["rect_attention.launches"] == (
             2 * rpo.clip_cfg.vision_layers * n)
         assert graph.replays == 10 // n
@@ -450,7 +450,7 @@ def test_resume_with_the_graph_on_gpu(tmp_path, monkeypatch):
                         lambda self, bs: seen.extend(host(b) for b in bs) or multi(self, bs))
     losses, log, resumed = run(tcli, PortTrainer, argv, monkeypatch)
     assert "Resumed prompt_learner" in log and "Captured the train step" in log
-    assert len(seen) == len(losses) == 5 and {n for n, _ in resumed._graphs} == {1, 2}
+    assert len(seen) == len(losses) == 5 and {n for n, *_ in resumed._graphs} == {1, 2}
     twin = build_trainer(resumed.cfg.clone(), device=resumed.device)
     ckpt = saved(out, epoch=1)
     twin.set_ckpt_state(twin.model_name, ckpt["state_dict"])

@@ -43,6 +43,7 @@ from rpo_tpu_torch.methods import rpo as tcore
 from rpo_tpu_torch.methods.rpo_trainer import RPO
 from rpo_tpu_torch.models.clip import ARCHS as TARCHS, params_from_numpy
 from rpo_tpu_torch.ops import rect_attention as ra
+from rpo_tpu_torch.ops.attention import attention_functions
 
 CLASSNAMES = [f"a longer class name {i}" for i in range(3)] + ["cat", "dog machine", "crimson finch"]
 K = 5
@@ -124,10 +125,10 @@ def _grads_close(got, want, dtype, what=""):
     optim.tree_map(one, got, want)
 
 
-def _port_loss_grads(prompts, frozen, ttask, timgs, split_vision=True, rect_attn=ra.rect_attention):
+def _port_loss_grads(prompts, frozen, ttask, timgs, split_vision=True):
     leaves = optim.tree_map(lambda t: t.clone().requires_grad_(True), prompts)
     loss, logits = tcore.rpo_loss(leaves, frozen, ttask, timgs, torch.from_numpy(LABELS),
-                                  split_vision=split_vision, rect_attn=rect_attn)
+                                  split_vision=split_vision)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss, logits, dict(zip(leaves, grads))
 
@@ -182,8 +183,9 @@ def test_frozen_rows_carry_no_prompt_gradient(case, monkeypatch):
     bwd = ra._attention_bwd_math
     monkeypatch.setattr(ra, "_attention_bwd_math",
                         lambda *a: needs.append(tuple(a[5])) or bwd(*a))
-    _, _, grads = _port_loss_grads(_tprompts(case), case["tfrozen"], case["ttask"],
-                                   case["timgs"], rect_attn=recording_rect)
+    with attention_functions(rect=recording_rect):
+        _, _, grads = _port_loss_grads(_tprompts(case), case["tfrozen"], case["ttask"],
+                                       case["timgs"])
     n_frozen = TARCHS[case["arch"]].vision_seq_len
     layers = TARCHS[case["arch"]].vision_layers
     assert calls == [(n_frozen, False, False, False), (K, True, False, False)] * layers
